@@ -1,0 +1,106 @@
+"""Build the package's CUDA sources with ``nvcc`` at first use and load
+them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC
+
+``-fmad=false`` keeps every multiply and add rounded on its own, which the
+deterministic pow and the bitwise mask gates rely on.  The library lands in
+``_build/`` (git-ignored) under a name keyed by a hash of the sources and
+flags, so unchanged sources are not rebuilt.  A missing ``nvcc`` or a
+failed compile raises with the compiler's message.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "find_nvcc", "build", "load_library"]
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+#: where the CUDA toolkit sits when neither CUDA_HOME nor PATH names it
+CUDA_DEFAULT = Path("/usr/local/cuda")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def find_nvcc() -> str | None:
+    """``nvcc`` from ``CUDA_HOME``, then ``PATH``, then the default
+    toolkit location; None when there is none."""
+    root = os.environ.get("CUDA_HOME")
+    if root and (Path(root) / "bin" / "nvcc").is_file():
+        return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = CUDA_DEFAULT / "bin" / "nvcc"
+    return str(default) if default.is_file() else None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build(out_dir: Path | None = None) -> Path:
+    """Compile ``csrc/*.cu`` into ``out_dir`` (default ``_build/``) unless a
+    library for these exact sources and flags is already there; returns
+    its path.  The compiler's report (``-Xptxas -v``: registers, spills)
+    is kept beside it as ``<library>.log``."""
+    out_dir = Path(out_dir) if out_dir is not None else BUILD_DIR
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    lib = out_dir / f"libmf_kernels_{h.hexdigest()[:16]}.so"
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (looked in CUDA_HOME, PATH and "
+            f"{CUDA_DEFAULT}/bin): the CUDA kernels of "
+            "mi_fieldcalc_tpu_torch are compiled with nvcc at first use")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               *[str(s) for s in srcs if s.suffix == ".cu"]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mf_derived_fields.argtypes = [p] * 16 + [i, i, i, i, p]
+    lib.mf_derived_fields.restype = i
+    lib.mf_error_string.argtypes = [i]
+    lib.mf_error_string.restype = ctypes.c_char_p
+    return lib
