@@ -16,10 +16,28 @@ Phases (any failure raises and exits non-zero):
    tensors; the kernel must have been launched exactly 3 times;
 5. times on this card: kernel and plain medians (CUDA events), effective
    GB/s, a device copy's GB/s for scale, and one request split into
-   decode, H2D, kernel, D2H and encode.
+   decode, H2D, kernel, D2H and encode;
+6. the column-interpolation kernel and the two suite kernels against
+   their plain versions on the card, at phase 3's shapes and a 137-level
+   column (137, 9, 150): masked and all-defined, ln p and p, targets above
+   the top and below the surface, a non-monotone column; every valid mode
+   of every suite family in one request, with out-of-table temperatures,
+   undefined p / ps points and p <= 0 on the a-level path.  Masks and
+   values must be equal (NaN where NaN);
+7. the isobaric path at BASELINE config 4's full size, 137x719x929 -> the
+   11 standard surfaces: ``derived_fields_isobaric(fused=True,
+   stacked=True)`` must launch the interpolation kernel and the pipeline
+   kernel once each and equal the plain composition; then its times, split
+   into the two kernels;
+8. the suite entry: 3 requests through ``staging.run_hlevel_suite_np`` at
+   32x719x929 with BASELINE config 2's request set (undef lanes live,
+   fully defined, undef lanes live; 3 launches, the all-defined route as
+   the decode counts say, outputs equal to the plain version's), and
+   ``alevel_suite_fused`` once at config 2's own 10x719x929 with a
+   pressure field; then the two kernels' times and one request split.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
-line is a JSON object with the kernel's record, the last
+line is a JSON object with the kernels' records, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.  Exits
 non-zero without a CUDA device.
 """
@@ -41,6 +59,18 @@ SHAPES = ((3, 37, 61), (2, 33, 135), (1, 3, 3), (2, 5, 929), (4, 64, 256))
 RTOL = 2e-5
 NAMES = ("p", "th", "rh", "td", "thetae", "ducting", "wspeed", "vort", "div",
          "tadv", "gradt", "tfp")
+#: phase 6's shapes: phase 3's and a 137-level column
+KERNEL_SHAPES = SHAPES + ((137, 9, 150),)
+#: BASELINE config 4 (tools/baseline_configs.py:209-249) and config 2
+#: (:130-174) at full size; the suite entry's requests at phase 4's size
+ISO_SHAPE = (137, 719, 929)
+A_SUITE_SHAPE = (10, 719, 929)
+SUITE_SHAPE = (32, 719, 929)
+CONFIG2 = {"temps": (3, 4), "hums_q": (1, 5, 9), "hums_rh": (3, 7, 11)}
+#: every valid mode of every suite family (ops/fused_suite.py _VALID)
+ALL_MODES = {"temps": (1, 2, 3, 4, 5), "hums_q": (1, 2, 5, 6, 9, 10),
+             "hums_rh": (3, 4, 7, 8, 11, 12), "thes": (1, 2),
+             "ducts_q": (1, 2), "ducts_rh": (3, 4)}
 
 
 def log(*args) -> None:
@@ -96,6 +126,98 @@ def make_inputs(nlev, ny, nx, seed, undefs, kind="scattered"):
         ym = np.full((ny, nx), 3.6e-7, np.float32)
     fc = np.full((ny, nx), 1.2e-4, np.float32)
     return tk, q, u, v, ps, alevel, blevel, xm, ym, fc
+
+
+def sentinel(rng, lo, hi, shape, undef_frac: float) -> np.ndarray:
+    """Uniform float32 values with ``undef_frac`` of them set to 1e35."""
+    a = rng.uniform(lo, hi, shape).astype(np.float32)
+    if undef_frac:
+        a[rng.random(shape) < undef_frac] = np.float32(1e35)
+    return a
+
+
+def make_column_inputs(nlev, ny, nx, seed, undef_frac, undef_ps=False):
+    """BASELINE config 4's inputs (tools/baseline_configs.py:216-233):
+    T 220-300 K, q, u, v with ``undef_frac`` undefined points, ps
+    950-1030 hPa (one undefined point with ``undef_ps``), and the hybrid
+    law ``a = linspace(50, 300)``, ``b = linspace(0, 0.7)**1.5``, whose
+    model top is 50 hPa and whose lowest level lies near 900 hPa."""
+    rng = np.random.default_rng(seed)
+    shape = (nlev, ny, nx)
+    tk = sentinel(rng, 220.0, 300.0, shape, undef_frac)
+    q = sentinel(rng, 1e-4, 1e-2, shape, undef_frac)
+    u = sentinel(rng, -40.0, 40.0, shape, undef_frac)
+    v = sentinel(rng, -40.0, 40.0, shape, undef_frac)
+    ps = rng.uniform(950.0, 1030.0, (ny, nx)).astype(np.float32)
+    if undef_ps:
+        ps[ny // 2, nx // 2] = np.float32(1e35)
+    alevel = np.linspace(50.0, 300.0, nlev).astype(np.float32)
+    blevel = (np.linspace(0.0, 0.7, nlev) ** 1.5).astype(np.float32)
+    xm = np.full((ny, nx), 4.0e-7, np.float32)
+    fc = np.full((ny, nx), 1.2e-4, np.float32)
+    return tk, q, u, v, ps, alevel, blevel, xm, xm.copy(), fc
+
+
+def make_suite_inputs(nlev, ny, nx, seed, undef_frac, plant=True):
+    """BASELINE config 2's inputs (tools/baseline_configs.py:135-147): T
+    250-300 K, q, RH 5-95 % with ``undef_frac`` undefined points and a
+    pressure field p 300-1000 hPa; plus ps 950-1030 hPa and hybrid
+    coefficients for the h-level suite.  ``plant`` adds temperatures
+    beyond both ends of the saturation table, p = 0 and p < 0, and (with
+    undefined points) an undefined p and ps point."""
+    rng = np.random.default_rng(seed)
+    shape = (nlev, ny, nx)
+    tk = sentinel(rng, 250.0, 300.0, shape, undef_frac)
+    q = sentinel(rng, 1e-4, 1e-2, shape, undef_frac)
+    rh = sentinel(rng, 5.0, 95.0, shape, undef_frac)
+    p = rng.uniform(300.0, 1000.0, shape).astype(np.float32)
+    ps = rng.uniform(950.0, 1030.0, (ny, nx)).astype(np.float32)
+    if plant:
+        tk[0, 0, 0] = 520.0
+        tk[-1, -1, -1] = 100.0
+        p[0, min(1, ny - 1), min(1, nx - 1)] = 0.0
+        p[-1, -1, 0] = -5.0
+        if undef_frac:
+            p[0, ny // 2, nx // 2] = np.float32(1e35)
+            ps[ny // 2, nx // 2] = np.float32(1e35)
+    alevel = np.linspace(30.0, 0.0, nlev).astype(np.float32)
+    blevel = np.linspace(0.02, 1.0, nlev).astype(np.float32)
+    return tk, q, rh, p, ps, alevel, blevel
+
+
+def value_err(got, ref, label: str) -> float:
+    """Max |kernel - plain| (NaN equal to NaN, equal infinities equal);
+    raises where they differ by more than RTOL relative."""
+    import torch
+    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+    err = torch.where(same, torch.zeros_like(got), (got - ref).abs())
+    bad = ~same & ~(err <= RTOL * ref.abs())
+    if bool(bad.any()):
+        k = int(bad.reshape(-1).nonzero()[0, 0])
+        raise AssertionError(
+            f"{label}: {int(bad.sum())} values outside rtol {RTOL}, e.g. "
+            f"kernel {float(got.reshape(-1)[k])!r} plain "
+            f"{float(ref.reshape(-1)[k])!r}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def compare_fields(got, ref, label: str, defined_only: bool) -> float:
+    """Kernel vs plain lists of Fields: masks bitwise, values by
+    :func:`value_err` on every point or on the defined points; returns the
+    max abs error."""
+    import torch
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} outputs, plain "
+                             f"{len(ref)}")
+    worst = 0.0
+    for k, (g, r) in enumerate(zip(got, ref)):
+        if not torch.equal(g.mask, r.mask):
+            raise AssertionError(f"{label} output {k}: masks differ at "
+                                 f"{int((g.mask != r.mask).sum())} points")
+        gv, rv = ((g.values[g.mask], r.values[r.mask]) if defined_only
+                  else (g.values, r.values))
+        worst = max(worst, value_err(gv, rv, f"{label} output {k}"))
+    return worst
 
 
 def time_ms(fn, reps: int) -> list:
@@ -300,7 +422,8 @@ def phase_main_path(dev, nlev=NLEV, ny=NY, nx=NX) -> dict:
     return {"launches": launches, "max_abs_err": max_abs}
 
 
-def phase_times(dev, smi: str, nlev=NLEV, ny=NY, nx=NX, reps=10) -> dict:
+def phase_times(dev, smi: str, nlev=NLEV, ny=NY, nx=NX, reps=10,
+                request_reps=5) -> dict:
     import torch
     from mi_fieldcalc_tpu_torch import staging
     from mi_fieldcalc_tpu_torch.ops import fused
@@ -340,7 +463,7 @@ def phase_times(dev, smi: str, nlev=NLEV, ny=NY, nx=NX, reps=10) -> dict:
         stager = staging.HostStager(4)
         parts = {k: [] for k in ("decode", "h2d", "kernel", "d2h",
                                  "encode", "total")}
-        for _ in range(5):
+        for _ in range(request_reps):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             host, ad = staging._decode_step(args, stager, 1e35)
@@ -361,9 +484,362 @@ def phase_times(dev, smi: str, nlev=NLEV, ny=NY, nx=NX, reps=10) -> dict:
             del staged, out, vals, masks
         med = {k: statistics.median(v) for k, v in parts.items()}
         res[f"request_{label}_ms"] = med
-        log(f"[{smi}] request ({label}) median of 5, ms: " + " ".join(
+        log(f"[{smi}] request ({label}) median of {request_reps}, ms: "
+            + " ".join(
             f"{k}={v:.2f}" for k, v in med.items()))
     return res
+
+
+def phase_new_kernels(dev) -> dict:
+    """The column-interpolation kernel (B2) and the a- and h-level suite
+    kernels (B3, B4) against their plain versions at KERNEL_SHAPES."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field, from_sentinel
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
+    from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+
+    def on(a):
+        return torch.as_tensor(a, device=dev)
+
+    # 20 hPa lies above the model top, 1100 hPa below every surface
+    targets = STANDARD_PLEVELS + (20.0, 1100.0)
+    worst = {"interp": 0.0, "alevel_suite": 0.0, "hlevel_suite": 0.0}
+    for shape in KERNEL_SHAPES:
+        for all_defined in (False, True):
+            raw = make_column_inputs(*shape, seed=sum(shape),
+                                     undef_frac=0.0 if all_defined else 0.03,
+                                     undef_ps=not all_defined)
+            fields = tuple(from_sentinel(a, device=dev) for a in raw[:4])
+            ps = from_sentinel(raw[4], device=dev)
+            a, b = on(raw[5]), on(raw[6])
+            kind = "all_defined" if all_defined else "masked"
+            for log_p in (True, False):
+                label = f"interp {shape} {kind} log_p={log_p}"
+                got = vf.hlevel_to_plevel_fused(fields, ps, a, b, targets,
+                                                log_p=log_p,
+                                                all_defined=all_defined)
+                ref = vf.hlevel_to_plevel_plain(fields, ps, a, b, targets,
+                                                log_p, all_defined)
+                err = compare_fields(got, ref, label, defined_only=False)
+                worst["interp"] = max(worst["interp"], err)
+            del fields, ps
+    log(f"interp == plain at {len(KERNEL_SHAPES)} shapes x masked/"
+        f"all-defined x ln p/p: max abs err {worst['interp']!r}")
+
+    # one column whose pressure is not monotone: 57 hPa is bracketed by
+    # levels (0, 1) and (2, 3); the last bracket wins
+    al = np.array([10, 60, 50, 60, 80, 100, 120, 100, 50], np.float32)
+    bl = np.array([0, 0, .1, .2, .3, .45, .6, .8, 1.0], np.float32)
+    rng = np.random.default_rng(3)
+    psv = rng.uniform(980.0, 1030.0, (4, 5)).astype(np.float32)
+    psv[1, 2] = 50.0
+    col = al + bl * psv[1, 2]
+    if [k for k in range(8) if col[k] <= 57.0 < col[k + 1]] != [0, 2]:
+        raise AssertionError("the non-monotone column is not set up")
+    fv = rng.normal(0.0, 1.0, (9, 4, 5)).astype(np.float32)
+    f = Field(on(fv), torch.ones(fv.shape, dtype=torch.bool, device=dev))
+    psf = Field(on(psv), torch.ones(psv.shape, dtype=torch.bool, device=dev))
+    nm_targets = (57.0, 500.0, 850.0)
+    got = vf.hlevel_to_plevel_fused((f,), psf, on(al), on(bl), nm_targets)
+    ref = vf.hlevel_to_plevel_plain((f,), psf, on(al), on(bl), nm_targets)
+    worst["interp"] = max(worst["interp"], compare_fields(
+        got, ref, "interp non-monotone column", defined_only=False))
+    x0, x1 = np.log(col[2]), np.log(col[3])
+    want = fv[2, 1, 2] + (fv[3, 1, 2] - fv[2, 1, 2]) * (
+        (np.log(57.0) - x0) / (x1 - x0))
+    if not (bool(got[0].mask[0, 1, 2])
+            and abs(float(got[0].values[0, 1, 2]) - want) < 1e-5):
+        raise AssertionError("non-monotone column: not the last bracket")
+    log("interp == plain on a non-monotone column (last bracket wins)")
+
+    reqs = fs._build_reqs("chip_smoke", **ALL_MODES)
+    for shape in KERNEL_SHAPES:
+        for all_defined in (False, True):
+            tk, q, rh, p, psv, al, bl = make_suite_inputs(
+                *shape, seed=sum(shape) + 1,
+                undef_frac=0.0 if all_defined else 0.03)
+            t, q, rh, p, ps = (from_sentinel(x, device=dev)
+                               for x in (tk, q, rh, p, psv))
+            a, b = on(al), on(bl)
+            kind = "all_defined" if all_defined else "masked"
+            for name, got, ref in (
+                    ("alevel_suite", fs.alevel_suite_stacked(
+                        t, q, rh, p, reqs, all_defined),
+                     fs.alevel_suite_plain(t, q, rh, p, reqs, all_defined)),
+                    ("hlevel_suite", fs.hlevel_suite_stacked(
+                        t, q, rh, ps, a, b, reqs, all_defined),
+                     fs.hlevel_suite_plain(t, q, rh, ps, a, b, reqs,
+                                           all_defined))):
+                label = f"{name} {shape} {kind}"
+                if got.mask_map != ref.mask_map or not torch.equal(
+                        got.masks, ref.masks):
+                    raise AssertionError(f"{label}: mask planes differ")
+                worst[name] = max(worst[name], compare_fields(
+                    got.as_fields(), ref.as_fields(), label,
+                    defined_only=True))
+    log(f"alevel / hlevel suite == plain, {len(reqs)} modes in one request, "
+        f"at {len(KERNEL_SHAPES)} shapes x masked/all-defined: max abs err "
+        f"{worst['alevel_suite']!r} / {worst['hlevel_suite']!r}")
+    return worst
+
+
+def interp_bytes(nvar, nlev, nt, ny, nx, all_defined: bool) -> dict:
+    """B2's bytes moved once: the whole level stack (values and masks),
+    ps, and the outputs; and the bracket-only reads (two levels per field
+    and target) the kernel makes."""
+    pts, m = ny * nx, 0 if all_defined else 1
+    out = nvar * nt * pts * 4 + (1 if all_defined else nvar) * nt * pts
+    return {"stack": nvar * nlev * pts * (4 + m) + pts * (4 + m) + out,
+            "bracket": 2 * nvar * nt * pts * (4 + m) + pts * (4 + m) + out}
+
+
+def suite_bytes(nin3, nout, nplanes, nlev, ny, nx, ps_plane: bool,
+                all_defined: bool) -> int:
+    """B3 / B4's bytes moved once: ``nin3`` input stacks (values and
+    masks), ps (B4), ``nout`` value planes and ``nplanes`` mask planes."""
+    pts3, pts2, m = nlev * ny * nx, ny * nx, 0 if all_defined else 1
+    return (nin3 * pts3 * (4 + m) + (pts2 * (4 + m) if ps_plane else 0)
+            + nout * pts3 * 4 + nplanes * pts3)
+
+
+def phase_isobaric(dev, smi: str, copy_gbps: float, reps=10) -> dict:
+    """BASELINE config 4 at full size through derived_fields_isobaric."""
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.field import Field, from_sentinel
+    from mi_fieldcalc_tpu_torch.models import (STANDARD_PLEVELS,
+                                               derived_fields_isobaric)
+    from mi_fieldcalc_tpu_torch.ops import fused
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+
+    nlev, ny, nx = ISO_SHAPE
+    nt = len(STANDARD_PLEVELS)
+    raw = make_column_inputs(nlev, ny, nx, seed=3, undef_frac=0.005)
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = tuple(from_sentinel(a, device=dev) for a in raw[:5]) + tuple(
+        torch.as_tensor(a, device=dev) for a in raw[5:])
+    del raw
+    in_gb = sum(f.values.numel() * 5 for f in args[:4]) / 1e9
+    fused.derived_fields_fused.launches = 0
+    vf.hlevel_to_plevel_fused.launches = 0
+    out = derived_fields_isobaric(*args, plevels=STANDARD_PLEVELS,
+                                  fused=True, stacked=True)
+    torch.cuda.synchronize(dev)
+    launches = {"interp": vf.hlevel_to_plevel_fused.launches,
+                "derived_fields": fused.derived_fields_fused.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"isobaric path {nlev}x{ny}x{nx} -> {nt} levels: launches "
+        f"{launches}, inputs {in_gb:.2f} GB on the card, peak device "
+        f"memory {peak_gb:.2f} GB")
+    if launches != {"interp": 1, "derived_fields": 1}:
+        raise AssertionError(f"expected one launch of each kernel, got "
+                             f"{launches}")
+    # the plain composition on the same tensors
+    tk, q, u, v, ps, a, b, xm, ym, fc = args
+    ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
+                torch.ones((ny, nx), dtype=torch.bool, device=dev))
+    plv = torch.tensor(STANDARD_PLEVELS, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(nt, dtype=torch.float32, device=dev)
+    interp = vf.hlevel_to_plevel_plain((tk, q, u, v), ps, a, b,
+                                       STANDARD_PLEVELS)
+    plain = fused.derived_fields_plain(*interp, ps1, plv, zeros, xm, ym, fc)
+    errs = compare_stacked(out, plain, "isobaric full size")
+    max_abs = max(errs["max_abs"].values())
+    res = staging._encode_step(*staging._fetch(out), 1e35)
+    check_physics(res, nt, ny, nx)
+    log(f"isobaric path == plain composition (max abs err {max_abs!r}); "
+        f"outputs within the physical bounds")
+    del out, plain, res
+
+    # times: the two kernels and their plain versions, on these tensors
+    kern = vf.hlevel_to_plevel_fused((tk, q, u, v), ps, a, b,
+                                     STANDARD_PLEVELS)
+    t_b2 = time_ms(lambda: vf.hlevel_to_plevel_fused(
+        (tk, q, u, v), ps, a, b, STANDARD_PLEVELS), reps)
+    p_b2 = time_ms(lambda: vf.hlevel_to_plevel_plain(
+        (tk, q, u, v), ps, a, b, STANDARD_PLEVELS), reps)
+    t_b1 = time_ms(lambda: fused.derived_fields_fused(
+        *kern, ps1, plv, zeros, xm, ym, fc), reps)
+    p_b1 = time_ms(lambda: fused.derived_fields_plain(
+        *kern, ps1, plv, zeros, xm, ym, fc), reps)
+    med = {k: statistics.median(x) for k, x in
+           (("interp_ms", t_b2), ("interp_plain_ms", p_b2),
+            ("derived_fields_ms", t_b1), ("derived_fields_plain_ms", p_b1))}
+    nb = interp_bytes(4, nlev, nt, ny, nx, False)
+    gbps = {k: v / med["interp_ms"] / 1e6 for k, v in nb.items()}
+    log(f"[{smi}] isobaric step: interp kernel {med['interp_ms']:.4f} ms "
+        f"(plain {med['interp_plain_ms']:.3f} ms), pipeline kernel on the "
+        f"{nt} surfaces {med['derived_fields_ms']:.4f} ms (plain "
+        f"{med['derived_fields_plain_ms']:.3f} ms); interp "
+        f"{gbps['stack']:.1f} GB/s by whole-stack bytes "
+        f"({nb['stack'] / 1e9:.3f} GB), {gbps['bracket']:.1f} GB/s by "
+        f"bracket-read bytes; device copy {copy_gbps:.1f} GB/s")
+    return {"launches": launches, "max_abs_err": max_abs,
+            "inputs_gb": in_gb, "peak_device_gb": peak_gb,
+            "times": {**med, "interp_ms_all": t_b2,
+                      "interp_plain_ms_all": p_b2,
+                      "derived_fields_ms_all": t_b1,
+                      "derived_fields_plain_ms_all": p_b1},
+            "interp_gbps": gbps, "interp_bytes": nb}
+
+
+def check_suite_physics(out: dict, nlev: int, ny: int, nx: int) -> None:
+    """Shape, finite defined values, and theta / dewpoints (K) within
+    plausible bounds on config 2's inputs."""
+    for name, a in out.items():
+        if a.shape != (nlev, ny, nx) or a.dtype != np.float32:
+            raise AssertionError(f"{name}: {a.shape} {a.dtype}")
+        d = a[a != np.float32(1e35)]
+        if d.size < a.size // 2 or not np.isfinite(d).all():
+            raise AssertionError(f"{name}: too few or non-finite values")
+    for name, lo, hi in (("temp3", 200.0, 600.0), ("hum_q9", 150.0, 400.0),
+                         ("hum_rh11", 150.0, 400.0)):
+        a = out[name]
+        if not lo < float(np.median(a[a != np.float32(1e35)])) < hi:
+            raise AssertionError(f"{name}: outside physical bounds")
+
+
+def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
+                 request_reps=3) -> dict:
+    """The suite entry (B4) and the a-level suite (B3) at full size."""
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
+
+    nlev, ny, nx = SUITE_SHAPE
+    reqs = fs._build_reqs("chip_smoke", *(CONFIG2.get(k, ()) for k in (
+        "temps", "hums_q", "hums_rh", "thes", "ducts_q", "ducts_rh")))
+    requests = [("undef lanes live", 11, 0.02, False),
+                ("fully defined", 12, 0.0, True),
+                ("undef lanes live", 13, 0.005, False)]
+    inputs = [make_suite_inputs(nlev, ny, nx, seed, frac, plant=False)
+              for _, seed, frac, _ in requests]
+    fs.hlevel_suite_fused.launches = 0
+    outs = []
+    for tk, q, rh, _, ps, al, bl in inputs:
+        outs.append(staging.run_hlevel_suite_np(tk, q, rh, ps, al, bl,
+                                                device=dev, **CONFIG2))
+    torch.cuda.synchronize(dev)
+    h_launches = fs.hlevel_suite_fused.launches
+    log(f"suite entry: 3 requests at {nlev}x{ny}x{nx}, {len(reqs)} outputs "
+        f"each, suite kernel launches {h_launches}")
+    if h_launches != 3:
+        raise AssertionError(f"expected 3 suite kernel launches, got "
+                             f"{h_launches}")
+    h_err = 0.0
+    for k, ((label, _, _, want_ad), (tk, q, rh, _, ps, al, bl), out) in \
+            enumerate(zip(requests, inputs, outs)):
+        host, ad = staging._suite_decode_step(
+            tk, q, rh, ps, al, bl, reqs, staging.HostStager(3), 1e35)
+        if ad != want_ad:
+            raise AssertionError(f"suite request {k + 1}: all_defined routed "
+                                 f"{ad}, expected {want_ad}")
+        staged = staging._suite_upload_step(host, reqs, dev)
+        plain = fs.hlevel_suite_plain(*staged, reqs, ad)
+        if k == 0:
+            kern = fs.hlevel_suite_stacked(*staged, reqs, ad)
+            h_err = compare_fields(kern.as_fields(), plain.as_fields(),
+                                   "suite full size masked",
+                                   defined_only=True)
+            del kern
+        ref = staging._suite_encode_step(*staging._fetch(plain),
+                                         plain.mask_map, reqs, 1e35)
+        del plain, staged
+        if list(out) != list(ref):
+            raise AssertionError(f"suite request {k + 1}: keys {list(out)}")
+        for name in out:
+            g, r = out[name], ref[name]
+            if not np.array_equal(g == np.float32(1e35),
+                                  r == np.float32(1e35)):
+                raise AssertionError(f"suite request {k + 1} {name}: undef "
+                                     f"positions differ")
+            value_err(torch.from_numpy(g), torch.from_numpy(r),
+                      f"suite request {k + 1} {name}")
+        check_suite_physics(out, nlev, ny, nx)
+        log(f"suite request {k + 1} ({label}, all_defined={ad}): "
+            f"{len(out)} outputs == plain version")
+
+    # the a-level suite once at config 2's own shape, with a p field
+    an, ay, ax = A_SUITE_SHAPE
+    tk, q, rh, p, _, _, _ = make_suite_inputs(an, ay, ax, 1, 0.02,
+                                              plant=False)
+    t, q, rh, p = (from_sentinel(x, device=dev) for x in (tk, q, rh, p))
+    fs.alevel_suite_fused.launches = 0
+    a_out = fs.alevel_suite_fused(t, q, rh, p, **CONFIG2)
+    torch.cuda.synchronize(dev)
+    a_launches = fs.alevel_suite_fused.launches
+    if a_launches != 1:
+        raise AssertionError(f"expected 1 a-level suite launch, got "
+                             f"{a_launches}")
+    a_err = compare_fields(a_out, fs.alevel_suite_plain(
+        t, q, rh, p, reqs).as_fields(), "alevel suite full size",
+        defined_only=True)
+    del a_out
+    log(f"alevel_suite_fused at {an}x{ay}x{ax}: 1 launch, == plain "
+        f"(max abs err {a_err!r})")
+
+    # times: B3 on these tensors, B4 on request 1's
+    k3 = time_ms(lambda: fs.alevel_suite_stacked(t, q, rh, p, reqs), reps)
+    p3 = time_ms(lambda: fs.alevel_suite_plain(t, q, rh, p, reqs), reps)
+    del t, q, rh, p
+    tk, q, rh, _, ps, al, bl = inputs[0]
+    host, ad = staging._suite_decode_step(tk, q, rh, ps, al, bl, reqs,
+                                          staging.HostStager(3), 1e35)
+    staged = staging._suite_upload_step(host, reqs, dev)
+    k4 = time_ms(lambda: fs.hlevel_suite_stacked(*staged, reqs, ad), reps)
+    p4 = time_ms(lambda: fs.hlevel_suite_plain(*staged, reqs, ad), reps)
+    del staged
+    nout = len(reqs)
+    b3 = suite_bytes(4, nout, nout, an, ay, ax, False, False)
+    b4 = suite_bytes(3, nout, nout, nlev, ny, nx, True, False)
+    med = {"alevel_ms": statistics.median(k3),
+           "alevel_plain_ms": statistics.median(p3),
+           "hlevel_ms": statistics.median(k4),
+           "hlevel_plain_ms": statistics.median(p4)}
+    gbps = {"alevel": b3 / med["alevel_ms"] / 1e6,
+            "hlevel": b4 / med["hlevel_ms"] / 1e6}
+    log(f"[{smi}] alevel suite {an}x{ay}x{ax} masked: kernel "
+        f"{med['alevel_ms']:.4f} ms, plain {med['alevel_plain_ms']:.3f} ms, "
+        f"{gbps['alevel']:.1f} GB/s ({b3 / 1e9:.3f} GB); hlevel suite "
+        f"{nlev}x{ny}x{nx} masked: kernel {med['hlevel_ms']:.4f} ms, plain "
+        f"{med['hlevel_plain_ms']:.3f} ms, {gbps['hlevel']:.1f} GB/s "
+        f"({b4 / 1e9:.3f} GB); device copy {copy_gbps:.1f} GB/s")
+
+    # one masked suite request, split
+    stager = staging.HostStager(3)
+    parts = {k: [] for k in ("decode", "h2d", "kernel", "d2h", "encode",
+                             "total")}
+    for _ in range(request_reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        host, ad = staging._suite_decode_step(tk, q, rh, ps, al, bl, reqs,
+                                              stager, 1e35)
+        t1 = time.perf_counter()
+        staged = staging._suite_upload_step(host, reqs, dev)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        out = staging._suite_compute(staged, reqs, ad)
+        torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        vals, masks = staging._fetch(out)
+        t4 = time.perf_counter()
+        staging._suite_encode_step(vals, masks, out.mask_map, reqs, 1e35)
+        t5 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                   t5 - t4, t5 - t0)):
+            parts[key].append(dt * 1e3)
+        del staged, out, vals, masks
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    log(f"[{smi}] suite request (masked) median of {request_reps}, ms: "
+        + " ".join(f"{k}={v:.2f}" for k, v in split.items()))
+    return {"hlevel_launches": h_launches, "alevel_launches": a_launches,
+            "hlevel_max_abs_err": h_err, "alevel_max_abs_err": a_err,
+            "times": {**med, "alevel_ms_all": k3, "alevel_plain_ms_all": p3,
+                      "hlevel_ms_all": k4, "hlevel_plain_ms_all": p4},
+            "gbps": gbps, "bytes": {"alevel": b3, "hlevel": b4},
+            "request_ms": split}
 
 
 def main() -> int:
@@ -382,6 +858,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    t_start = time.perf_counter()
     log("== phase 1: environment")
     smi, env = phase_env()
     log("== phase 2: build")
@@ -391,20 +868,60 @@ def main() -> int:
     log("== phase 4: main path, 3 requests through run_derived_fields_np")
     main_path = phase_main_path(dev)
     log("== phase 5: times on this card")
-    times = phase_times(dev, smi)
+    times = phase_times(dev, smi, request_reps=3)
+    log("== phase 6: interpolation and suite kernels vs plain versions")
+    new_worst = phase_new_kernels(dev)
+    log("== phase 7: the isobaric path at 137x719x929 -> 11 surfaces")
+    iso = phase_isobaric(dev, smi, times["copy_gbps"])
+    log("== phase 8: the suite entry and the a-level suite at full size")
+    suites = phase_suites(dev, smi, times["copy_gbps"])
+    wall = time.perf_counter() - t_start
+    log(f"all phases passed in {wall:.1f} s")
 
     log("record: " + json.dumps({
         "env": env, "build": build, "kernel_max_rel_err": worst,
-        "main_path": main_path, "times": times}))
+        "main_path": main_path, "times": times,
+        "new_kernels_max_abs_err": new_worst, "isobaric": iso,
+        "suites": suites, "wall_s": wall}))
+    src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     kernels = [{
         "name": "derived_fields",
         "route": "cuda",
-        "source": "mi_fieldcalc_tpu_torch/csrc/derived_fields.cu",
-        "replaces": "mi_fieldcalc_tpu/ops/fused.py:301",
+        "source": src + "derived_fields.cu",
+        "replaces": ref + "fused.py:301",
         "launches": main_path["launches"],
         "max_abs_err": main_path["max_abs_err"],
         "ms": times["masked"]["kernel_ms"],
         "plain_ms": times["masked"]["plain_ms"],
+    }, {
+        "name": "vertical_interp",
+        "route": "cuda",
+        "source": src + "vertical_interp.cu",
+        "replaces": ref + "vertical_fused.py:54",
+        "launches": iso["launches"]["interp"],
+        "max_abs_err": max(iso["max_abs_err"], new_worst["interp"]),
+        "ms": iso["times"]["interp_ms"],
+        "plain_ms": iso["times"]["interp_plain_ms"],
+    }, {
+        "name": "alevel_suite",
+        "route": "cuda",
+        "source": src + "level_suite.cu",
+        "replaces": ref + "fused_suite.py:230",
+        "launches": suites["alevel_launches"],
+        "max_abs_err": max(suites["alevel_max_abs_err"],
+                           new_worst["alevel_suite"]),
+        "ms": suites["times"]["alevel_ms"],
+        "plain_ms": suites["times"]["alevel_plain_ms"],
+    }, {
+        "name": "hlevel_suite",
+        "route": "cuda",
+        "source": src + "level_suite.cu",
+        "replaces": ref + "fused_suite.py:377",
+        "launches": suites["hlevel_launches"],
+        "max_abs_err": max(suites["hlevel_max_abs_err"],
+                           new_worst["hlevel_suite"]),
+        "ms": suites["times"]["hlevel_ms"],
+        "plain_ms": suites["times"]["hlevel_plain_ms"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,14 @@
 """Build the package's CUDA sources with ``nvcc`` at first use and load
 them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds):
+Every ``csrc/*.cu`` file (they share ``csrc/common.cuh``) is compiled by
+its own ``nvcc`` process, all started together, and the objects are linked
+into one shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC
+         -Xcompiler -fPIC -c <source>.cu        (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared <objects>
 
 ``-fmad=false`` keeps every multiply and add rounded on its own, which the
 deterministic pow and the bitwise mask gates rely on.  The library lands in
@@ -34,8 +37,7 @@ BUILD_DIR = _PKG / "_build"
 CUDA_DEFAULT = Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str | None:
@@ -76,21 +78,34 @@ def build(out_dir: Path | None = None) -> Path:
             f"{CUDA_DEFAULT}/bin): the CUDA kernels of "
             "mi_fieldcalc_tpu_torch are compiled with nvcc at first use")
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in srcs if s.suffix == ".cu"]]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        cus = [s for s in srcs if s.suffix == ".cu"]
+        objs = [str(Path(tmp) / (s.stem + ".o")) for s in cus]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                             for s, o in zip(cus, objs))]
+        report = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            report.append(out)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}:\n"
+                    f"{' '.join(cmd)}\n{out}")
+        tmp_lib = str(Path(tmp) / lib.name)
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp_lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}:\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        Path(str(lib) + ".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        Path(str(lib) + ".log").write_text("".join(report))
+        os.replace(tmp_lib, lib)
     return lib
 
 
@@ -99,8 +114,16 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
+    pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     lib.mf_derived_fields.argtypes = [p] * 16 + [i, i, i, i, p]
-    lib.mf_derived_fields.restype = i
+    lib.mf_vertical_interp.argtypes = ([pp, pp, i] + [p] * 5
+                                       + [i, p, p] + [i] * 5 + [p])
+    lib.mf_alevel_suite.argtypes = [p] * 8 + [ip, i, ip, p, p] + [i] * 4 + [p]
+    lib.mf_hlevel_suite.argtypes = ([p] * 10 + [ip, i, ip, p, p] + [i] * 4
+                                    + [p])
+    for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,
+               lib.mf_alevel_suite, lib.mf_hlevel_suite):
+        fn.restype = i
     lib.mf_error_string.argtypes = [i]
     lib.mf_error_string.restype = ctypes.c_char_p
     return lib

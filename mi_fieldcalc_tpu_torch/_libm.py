@@ -1,10 +1,12 @@
-"""Deterministic float32 pow for the Exner factor.
+"""Deterministic float32 transcendentals: the Exner pow and the log.
 
-PyTorch port of :func:`mi_fieldcalc_tpu._libm.pow_posc_f32`.  It uses
-only mul/add/select/int/bitcast, each rounded on its own, so it gives the
-bits the JAX package gives (and the CUDA kernel, which is compiled with
-``-fmad=false`` so no multiply-add is contracted).  Bitcasts are
-``Tensor.view(torch.int32)`` and ``.view(torch.float32)``.
+PyTorch port of :func:`mi_fieldcalc_tpu._libm.pow_posc_f32` and
+:func:`mi_fieldcalc_tpu._libm.log_f32`.  They use only
+mul/add/select/int/bitcast, each rounded on its own, so they give the
+bits the JAX package gives (and the CUDA kernels, which are compiled with
+``-fmad=false`` so no multiply-add is contracted; ``csrc/common.cuh``
+holds their device forms).  Bitcasts are ``Tensor.view(torch.int32)`` and
+``.view(torch.float32)``.
 """
 
 from __future__ import annotations
@@ -14,9 +16,14 @@ import torch
 
 from .field import f32
 
-__all__ = ["pow_posc_f32"]
+__all__ = ["log_f32", "pow_posc_f32"]
 
 _LOG2E = 1.44269504088896341
+#: ln2 split (Cephes C1/C2)
+_LN2_HI = 0.693359375
+_LN2_LO = -2.12194440e-4
+#: the smallest normal float32
+_MIN_NORMAL = 1.1754944e-38
 
 #: Cephes logf minimax coefficients (degree 8) and exp2 polynomial
 _LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
@@ -39,7 +46,7 @@ def pow_posc_f32(x: torch.Tensor, c) -> torch.Tensor:
     c_l2e = f32(c_d * _LOG2E)
     # maximum() propagates NaN, as jnp.maximum does
     x = torch.maximum(x.to(torch.float32),
-                      torch.tensor(f32(1.1754944e-38), device=x.device))
+                      torch.tensor(f32(_MIN_NORMAL), device=x.device))
     xi = x.view(torch.int32)
     e = ((xi >> 23) & 0xFF) - 126
     m = ((xi & 0x007FFFFF) | (126 << 23)).view(torch.float32)
@@ -66,3 +73,32 @@ def pow_posc_f32(x: torch.Tensor, c) -> torch.Tensor:
     ni = n.clamp(-126.0, 127.0).to(torch.int32)
     s = ((ni + 127) << 23).view(torch.float32)
     return e2 * s
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Cephes logf (``_libm.py:90-123`` of the JAX package): mantissa in
+    ``[sqrt(1/2), sqrt(2))``, the degree-8 polynomial, ``e*ln2`` re-added
+    in two parts.  Edges as libm: ``log(0) = -inf``, negative and NaN give
+    NaN, ``log(inf) = inf``.  Subnormal positives take ``torch.log``, as
+    the JAX function takes the backend log there (they never occur on the
+    operators' domains)."""
+    x = x.to(torch.float32)
+    xi = x.view(torch.int32)
+    e = ((xi >> 23) & 0xFF) - 126
+    m = ((xi & 0x007FFFFF) | (126 << 23)).view(torch.float32)
+    big = m > f32(0.70710678118654752440)
+    m = torch.where(big, m, m * 2.0)
+    ef = torch.where(big, e, e - 1).to(torch.float32)
+    z = m - 1.0
+    p = torch.full_like(z, f32(_LOG_P[0]))
+    for coef in _LOG_P[1:]:
+        p = p * z + f32(coef)
+    zz = z * z
+    r = z + (z * zz * p - zz * 0.5)
+    r = r + ef * f32(_LN2_LO)
+    r = r + ef * f32(_LN2_HI)
+    r = torch.where(x < f32(_MIN_NORMAL), torch.log(x), r)
+    nan = torch.full_like(x, float("nan"))
+    r = torch.where(x > 0, r, torch.where(x == 0, torch.full_like(
+        x, float("-inf")), nan))
+    return torch.where(torch.isfinite(x), r, torch.where(x > 0, x, nan))

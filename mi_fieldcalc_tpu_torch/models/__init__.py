@@ -1,5 +1,6 @@
 """Multi-operator pipelines (port of :mod:`mi_fieldcalc_tpu.models`)."""
 
 from .pipeline import (  # noqa: F401
-    DerivedFields, DerivedFieldsStacked, derived_fields, inputs_from_numpy,
+    STANDARD_PLEVELS, DerivedFields, DerivedFieldsStacked, derived_fields,
+    derived_fields_isobaric, inputs_from_numpy,
 )

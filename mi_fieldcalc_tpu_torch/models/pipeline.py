@@ -1,9 +1,11 @@
-"""The derived-field pipeline (port of :mod:`mi_fieldcalc_tpu.models.
-pipeline`, ``pipeline.py:47-203``).
+"""The derived-field pipelines (port of :mod:`mi_fieldcalc_tpu.models.
+pipeline`, ``pipeline.py:47-299``).
 
 12 outputs from temperature, specific humidity, wind and surface pressure
 on hybrid model levels: pressure, theta, RH, Td, theta_e, ducting, wind
-speed, vorticity, divergence, T-advection, |grad T| and TFP.
+speed, vorticity, divergence, T-advection, |grad T| and TFP
+(:func:`derived_fields`); and the same 12 on standard isobaric surfaces
+after a vertical interpolation (:func:`derived_fields_isobaric`).
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ from ..ops import (
 )
 from ..ops._harness import not_ported
 
-__all__ = ["DerivedFields", "DerivedFieldsStacked", "derived_fields",
-           "inputs_from_numpy"]
+__all__ = ["DerivedFields", "DerivedFieldsStacked", "STANDARD_PLEVELS",
+           "derived_fields", "derived_fields_isobaric", "inputs_from_numpy"]
+
+#: Standard isobaric surfaces for the 3-D vertical pipeline (hPa).
+STANDARD_PLEVELS = (1000.0, 925.0, 850.0, 700.0, 500.0, 400.0, 300.0,
+                    250.0, 200.0, 150.0, 100.0)
 
 
 class DerivedFields(NamedTuple):
@@ -119,6 +125,87 @@ def derived_fields(tk: Field, q: Field, u: Field, v: Field, ps: Field,
         tadv=advection(tk, u, v, xm, ym, hours=1.0),
         gradt=gradient(tk, xm, ym, compute=3),
         tfp=thermal_front_parameter(tk, xm, ym))
+
+
+def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
+                            ps: Field, alevel, blevel, xmapr, ymapr,
+                            fcoriolis, plevels=STANDARD_PLEVELS,
+                            fused: bool = False, global_shape=None,
+                            stacked: bool = False,
+                            all_defined: bool = False):
+    """The 3-D vertical pipeline (BASELINE config 4): interpolate the
+    prognostic fields from hybrid model levels to isobaric surfaces
+    (log-p linear, mask-aware), then run the 12-output derived-field
+    suite on the interpolated stack.
+
+    ``fused=True`` runs both stages through the CUDA kernels (the plain
+    versions on CPU tensors): the column interpolation
+    (:func:`..ops.vertical_fused.hlevel_to_plevel_fused`, with
+    ``all_defined`` passed through), then the pipeline kernel
+    (:func:`..ops.fused.derived_fields_fused`) with ``alevel = plevels``,
+    ``blevel = 0`` and a zero, all-defined surface pressure, which is the
+    constant-pressure surfaces in the kernel's hybrid law.  ``stacked``
+    selects its output layout.  ``all_defined`` asserts every input point
+    is defined; the interpolated masks stay data-dependent (targets below
+    the surface or above the top), so the pipeline kernel keeps its masks.
+
+    ``fused=False`` is the plain composition: :func:`..ops.vertical.
+    hlevel_to_plevel` per field, then the operators with a constant,
+    all-defined pressure per surface.  ``global_shape`` (the TPU's padded
+    layout) is not ported."""
+    from ..ops import hlevel_to_plevel
+
+    if (global_shape is not None or stacked or all_defined) and not fused:
+        raise ValueError("derived_fields_isobaric: global_shape/stacked/"
+                         "all_defined require fused=True")
+    if global_shape is not None:
+        raise not_ported("mi_fieldcalc_tpu.models.pipeline."
+                         "derived_fields_isobaric",
+                         "the padded layout (global_shape)")
+    dev = tk.values.device
+    plevels = tuple(float(t) for t in plevels)
+    np_ = len(plevels)
+    a = torch.as_tensor(alevel, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(blevel, dtype=torch.float32, device=dev)
+    if fused:
+        from ..ops.fused import derived_fields_fused
+        from ..ops.vertical_fused import hlevel_to_plevel_fused
+        tki, qi, ui, vi = hlevel_to_plevel_fused(
+            (tk, q, u, v), ps, a, b, plevels, all_defined=all_defined)
+        ny, nx = tki.values.shape[-2:]
+        ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
+                    torch.ones((ny, nx), dtype=torch.bool, device=dev))
+        return derived_fields_fused(
+            tki, qi, ui, vi, ps1,
+            torch.tensor(plevels, dtype=torch.float32, device=dev),
+            torch.zeros(np_, dtype=torch.float32, device=dev),
+            xmapr, ymapr, fcoriolis, stacked=stacked)
+    tki, qi, ui, vi = (hlevel_to_plevel(f, ps, a, b, plevels)
+                       for f in (tk, q, u, v))
+    # constant-pressure "field" per target level; defined everywhere
+    pvals = torch.tensor(plevels, dtype=torch.float32,
+                         device=dev).reshape(np_, 1, 1)
+    p = Field(pvals.expand(tki.values.shape),
+              torch.ones(tki.values.shape, dtype=torch.bool, device=dev))
+
+    def bcast(arr):
+        arr = torch.as_tensor(arr, dtype=torch.float32, device=dev)
+        return arr.expand(tki.values.shape) if arr.dim() == 2 else arr
+
+    xm, ym = bcast(xmapr), bcast(ymapr)
+    return DerivedFields(
+        p=p,
+        th=aleveltemp(tki, p, compute=3),
+        rh=alevelhum(tki, qi, p, compute=1),
+        td=alevelhum(tki, qi, p, compute=9),
+        thetae=alevelthe(tki, qi, p, compute=1),
+        ducting=alevelducting(tki, qi, p, compute=1),
+        wspeed=vectorabs(ui, vi),
+        vort=relvort(ui, vi, xm, ym),
+        div=divergence(ui, vi, xm, ym),
+        tadv=advection(tki, ui, vi, xm, ym, hours=1.0),
+        gradt=gradient(tki, xm, ym, compute=3),
+        tfp=thermal_front_parameter(tki, xm, ym))
 
 
 def inputs_from_numpy(args, device=None) -> tuple:

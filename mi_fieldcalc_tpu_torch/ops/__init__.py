@@ -1,12 +1,19 @@
-"""The derived-field pipeline's operators in plain PyTorch (port of the
-pipeline's slice of :mod:`mi_fieldcalc_tpu.ops`).  The CUDA kernel's
-wrapper lives in :mod:`.fused`; importing it builds nothing."""
+"""The port's operators in plain PyTorch (port of the ported slices of
+:mod:`mi_fieldcalc_tpu.ops`).  The CUDA kernels' wrappers live in
+:mod:`.fused`, :mod:`.vertical_fused` and :mod:`.fused_suite`; importing
+them builds nothing."""
 
 from .levels import (  # noqa: F401
-    aleveltemp, alevelthe, alevelhum, alevelducting,
+    aleveltemp, alevelthe, alevelhum, alevelducting, hleveltemp, hlevelthe,
+    hlevelhum, hlevelducting, hlevelpressure,
 )
 from .stencil import (  # noqa: F401
     fill_edges, gradient, relvort, divergence, advection,
     thermal_front_parameter,
 )
 from .elementwise import vectorabs  # noqa: F401
+from .vertical import plevel_interp, hlevel_to_plevel  # noqa: F401
+from .vertical_fused import hlevel_to_plevel_fused  # noqa: F401
+from .fused_suite import (  # noqa: F401
+    alevel_suite_fused, hlevel_suite_fused, suite_inputs_from_numpy,
+)

@@ -7,7 +7,8 @@ import torch
 
 from ..field import Field
 
-__all__ = ["require", "and_masks", "out_field", "not_ported"]
+__all__ = ["require", "and_masks", "out_field", "not_ported",
+           "check_tensor"]
 
 
 def require(cond: bool, message: str) -> None:
@@ -34,3 +35,22 @@ def and_masks(*fields_or_masks) -> torch.Tensor:
 def out_field(values: torch.Tensor, mask: torch.Tensor) -> Field:
     """Build an output Field, broadcasting the mask to the value shape."""
     return Field(values, mask.to(torch.bool).broadcast_to(values.shape))
+
+
+def check_tensor(fn: str, t, name: str, shape: tuple, dtype: torch.dtype,
+                 dev: torch.device) -> None:
+    """A kernel wrapper's argument check: ``t`` must be a contiguous
+    tensor of ``dtype`` and ``shape`` on ``dev``; raises naming the
+    wrapper ``fn`` and the argument."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{fn}: {name} must be a tensor on {dev}, got "
+                        f"{type(t).__name__}")
+    if t.device != dev:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")

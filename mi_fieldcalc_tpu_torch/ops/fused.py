@@ -1,8 +1,9 @@
 """The derived-field pipeline in one CUDA kernel, with its plain version.
 
 Port of :func:`mi_fieldcalc_tpu.ops.fused.derived_fields_fused`
-(``fused.py:669-1006``) in its production form: ``stacked=True`` with the
-9 deduplicated mask planes, or the 2 gate planes under ``all_defined``.
+(``fused.py:669-1006``): ``stacked=True`` with the 9 deduplicated mask
+planes, or the 2 gate planes under ``all_defined``, and the per-field
+layout ``stacked=False`` on top of it.
 Its TPU kernel ``fused.py:_kernel`` becomes the hand-written CUDA kernel
 ``csrc/derived_fields.cu``; the plain version is
 :func:`derived_fields_plain`, the port's :func:`derived_fields` stacked
@@ -22,7 +23,7 @@ import torch
 
 from ..field import Field
 from ..models.pipeline import DerivedFieldsStacked, derived_fields
-from ._harness import not_ported
+from ._harness import check_tensor
 
 __all__ = ["derived_fields_fused", "derived_fields_plain", "fused_supported"]
 
@@ -61,27 +62,28 @@ def derived_fields_plain(tk: Field, q: Field, u: Field, v: Field, ps: Field,
 def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
                          alevel, blevel, xmapr, ymapr, fcoriolis,
                          stacked: bool = True,
-                         all_defined: bool = False) -> DerivedFieldsStacked:
+                         all_defined: bool = False):
     """All 12 pipeline outputs in one pass, as a
     :class:`DerivedFieldsStacked`: values ``f32[12, nlev, ny, nx]`` and
     masks ``bool[9, nlev, ny, nx]``, or ``bool[2, nlev, ny, nx]`` when
     ``all_defined`` (the caller asserts every input point is defined; input
-    masks are then not read).
+    masks are then not read).  ``stacked=False`` returns the same result
+    as :class:`DerivedFields` (``.as_fields()``: views of the stacked
+    tensors; fields that share a mask plane share its tensor).
 
     On CUDA tensors this launches the kernel and counts the launch in
     ``derived_fields_fused.launches``; on CPU tensors it runs
     :func:`derived_fields_plain`."""
-    if not stacked:
-        raise not_ported("mi_fieldcalc_tpu.ops.fused.derived_fields_fused",
-                         "the per-field output layout (stacked=False)")
     dev = tk.values.device
     if dev.type == "cpu":
-        return derived_fields_plain(tk, q, u, v, ps, alevel, blevel, xmapr,
-                                    ymapr, fcoriolis, all_defined)
-    if dev.type != "cuda":
+        out = derived_fields_plain(tk, q, u, v, ps, alevel, blevel, xmapr,
+                                   ymapr, fcoriolis, all_defined)
+    elif dev.type == "cuda":
+        out = _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
+                      all_defined)
+    else:
         raise ValueError(f"derived_fields_fused: no kernel for {dev}")
-    return _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
-                   all_defined)
+    return out if stacked else out.as_fields()
 
 
 derived_fields_fused.launches = 0
@@ -89,20 +91,7 @@ derived_fields_fused.launches = 0
 
 def _check(t, name: str, shape: tuple, dtype: torch.dtype,
            dev: torch.device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"derived_fields_fused: {name} must be a tensor on "
-                        f"{dev}, got {type(t).__name__}")
-    if t.device != dev:
-        raise ValueError(f"derived_fields_fused: {name} is on {t.device}, "
-                         f"expected {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"derived_fields_fused: {name} is {t.dtype}, "
-                        f"expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"derived_fields_fused: {name} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"derived_fields_fused: {name} is not contiguous")
+    check_tensor("derived_fields_fused", t, name, shape, dtype, dev)
 
 
 def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,

@@ -1,8 +1,8 @@
 """Host staging: numpy sentinel grids -> device Fields -> the pipeline
 kernel -> numpy sentinel grids.
 
-Port of the serving path of :mod:`mi_fieldcalc_tpu.staging`
-(``staging.py:37-83, 136-298``).  One request of
+Port of the serving paths of :mod:`mi_fieldcalc_tpu.staging`
+(``staging.py:37-83, 136-298, 383-536``).  One request of
 :func:`run_derived_fields_np` runs:
 
 1. decode: the 4 input stacks in one ``native.decode_pad_batch`` call into
@@ -14,9 +14,14 @@ Port of the serving path of :mod:`mi_fieldcalc_tpu.staging`
 4. D2H and encode: ``native.encode_trim_batch`` with the ``MASK9`` or
    ``MASK2`` plane map.
 
-The grid is the logical ``(ny, nx)``: the TPU's padded layout is not
-ported.  ``stream_derived_fields_np`` (copy/compute overlap on CUDA
-streams) is not ported yet.
+:func:`run_hlevel_suite_np` serves the hybrid-level conversion suite the
+same way: the consumed stacks in one ``decode_pad_batch``, ``ps``, H2D,
+one suite-kernel launch, D2H and one ``encode_trim_batch`` with the
+suite's mask-plane map.
+
+The grid is the logical ``(ny, nx)``: the TPU's padded layout and aligned
+re-grid are not ported.  ``stream_derived_fields_np`` (copy/compute
+overlap on CUDA streams) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ import torch
 from . import native
 from .field import UNDEF, Field
 from .models.pipeline import DerivedFields, DerivedFieldsStacked
+from .ops._harness import not_ported
+from .ops.fused_suite import _build_reqs, _consumes, hlevel_suite_stacked
 
-__all__ = ["HostStager", "run_derived_fields_np"]
+__all__ = ["HostStager", "run_derived_fields_np", "run_hlevel_suite_np"]
 
 
 class HostStager:
@@ -75,13 +82,13 @@ def _stager_cache(k: int, undef: float) -> HostStager:
     return cache[(k, undef)]
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, fn: str = "run_derived_fields_np"
+                    ) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_derived_fields_np: device='cuda' but CUDA is "
-                           "not available")
+        raise RuntimeError(f"{fn}: device='cuda' but CUDA is not available")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"run_derived_fields_np: unsupported device {dev}")
+        raise ValueError(f"{fn}: unsupported device {dev}")
     return dev
 
 
@@ -122,8 +129,9 @@ def _compute(staged, all_defined: bool) -> DerivedFieldsStacked:
                                 all_defined=all_defined)
 
 
-def _fetch(out: DerivedFieldsStacked):
-    """Device result -> numpy ``(values, uint8 masks)``."""
+def _fetch(out):
+    """Device result (a :class:`DerivedFieldsStacked` or a suite's
+    ``SuiteStacked``) -> numpy ``(values, uint8 masks)``."""
     return (out.values.cpu().numpy(),
             out.masks.cpu().numpy().view(np.uint8))
 
@@ -155,3 +163,92 @@ def run_derived_fields_np(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
         undef)
     out = _compute(_upload_step(host, dev), all_defined)
     return _encode_step(*_fetch(out), undef)
+
+
+def _suite_decode_step(tk, q, rh, ps, alevel, blevel, reqs,
+                       stager: HostStager, undef: float):
+    """Decode one suite request on the host: the consumed stacks (t, then
+    q and rh where a request reads them) in one batch into the reused
+    stager, and ps.  Returns ``(host, all_defined)``."""
+    need_q, need_rh = _consumes(reqs)
+    stacks = [tk] + ([q] if need_q else []) + ([rh] if need_rh else [])
+    nlev, ny, nx = np.shape(tk)
+    vals, mask = stager.decode(*stacks)
+    psv, psm, ps_ndef = native.decode_pad(ps, ny, nx, undef)
+    all_defined = (ps_ndef == ny * nx
+                   and all(c == nlev * ny * nx for c in stager.counts))
+    coef = [np.ascontiguousarray(a, np.float32) for a in (alevel, blevel)]
+    return (vals, mask, psv, psm.view(np.uint8), coef), all_defined
+
+
+def _suite_upload_step(host, reqs, device: torch.device) -> tuple:
+    """Copy a decoded suite request to ``device``: ``(t, q, rh, ps,
+    alevel, blevel)`` with None for an unconsumed q / rh."""
+    vals, mask, psv, psm, coef = host
+    dv = torch.from_numpy(vals).to(device, copy=True)
+    dm = torch.from_numpy(mask).to(device, copy=True).view(torch.bool)
+    fields = iter(Field(dv[i], dm[i]) for i in range(dv.shape[0]))
+    need_q, need_rh = _consumes(reqs)
+    t = next(fields)
+    q = next(fields) if need_q else None
+    rh = next(fields) if need_rh else None
+    ps = Field(torch.from_numpy(psv).to(device, copy=True),
+               torch.from_numpy(psm).to(device, copy=True).view(torch.bool))
+    return (t, q, rh, ps) + tuple(
+        torch.from_numpy(a).to(device, copy=True) for a in coef)
+
+
+def _suite_compute(staged, reqs, all_defined: bool):
+    return hlevel_suite_stacked(*staged, reqs, all_defined=all_defined)
+
+
+def _suite_encode_step(values, masks, mask_map, reqs,
+                       undef: float) -> Dict[str, np.ndarray]:
+    """One encode of a fetched :class:`..ops.fused_suite.SuiteStacked`
+    with its mask-plane map (-1: constant defined)."""
+    ny, nx = values.shape[-2:]
+    planes = native.encode_trim_batch(values, masks, ny, nx, mask_map,
+                                      undef)
+    return {f"{fam}{c}": a for (fam, c), a in zip(reqs, planes)}
+
+
+def run_hlevel_suite_np(tk, q, rh, ps, alevel, blevel,
+                        temps=(), hums_q=(), hums_rh=(),
+                        thes=(), ducts_q=(), ducts_rh=(),
+                        undef: float = UNDEF,
+                        align: Optional[bool] = None,
+                        device="cuda") -> Dict[str, np.ndarray]:
+    """The hybrid-level conversion suite from sentinel numpy to sentinel
+    numpy: the drop-in for one ``hlevel*`` call per product.
+
+    Inputs: ``[nlev, ny, nx]`` sentinel stacks (``q`` / ``rh`` may be None
+    where no requested mode consumes them), the ``(ny, nx)`` surface
+    pressure and the ``[nlev]`` hybrid coefficients; request tuples as
+    :func:`..ops.fused_suite.hlevel_suite_fused`.  Returns
+    ``{"temp3": ..., "hum_q1": ..., ...}`` keyed by family and compute, in
+    request order.
+
+    ``device="cuda"`` runs the suite kernel once (and raises where CUDA is
+    not available); ``device="cpu"`` runs its plain version.  Fully
+    defined requests, as the decode counts show, take the kernel's
+    all-defined path.  ``align=True`` (the TPU's aligned re-grid) is not
+    ported; ``align=None`` reads no environment variable."""
+    dev = _resolve_device(device, "run_hlevel_suite_np")
+    if align:
+        raise not_ported("mi_fieldcalc_tpu.staging.run_hlevel_suite_np",
+                         "the aligned re-grid (align=True)")
+    reqs = _build_reqs("run_hlevel_suite_np", temps, hums_q, hums_rh,
+                       thes, ducts_q, ducts_rh)
+    need_q, need_rh = _consumes(reqs)
+    if need_q and q is None:
+        raise ValueError("run_hlevel_suite_np: a requested mode consumes q "
+                         "but q is None")
+    if need_rh and rh is None:
+        raise ValueError("run_hlevel_suite_np: a requested mode consumes rh "
+                         "but rh is None")
+    stager = _stager_cache(1 + need_q + need_rh, float(undef))
+    host, all_defined = _suite_decode_step(tk, q, rh, ps, alevel, blevel,
+                                           reqs, stager, undef)
+    out = _suite_compute(_suite_upload_step(host, reqs, dev), reqs,
+                         all_defined)
+    return _suite_encode_step(*_fetch(out), out.mask_map, reqs, undef)

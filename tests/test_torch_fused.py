@@ -29,7 +29,7 @@ from mi_fieldcalc_tpu.models.pipeline import derived_fields as j_derived
 from mi_fieldcalc_tpu.ops.fused import derived_fields_fused as j_fused
 from mi_fieldcalc_tpu_torch import constants as tc
 from mi_fieldcalc_tpu_torch.models.pipeline import (
-    DerivedFieldsStacked, derived_fields, inputs_from_numpy,
+    DerivedFields, DerivedFieldsStacked, derived_fields, inputs_from_numpy,
 )
 from mi_fieldcalc_tpu_torch.ops import fused as tfused
 
@@ -133,10 +133,16 @@ def test_mask_plane_layouts(nplanes):
 
 
 def test_unported_layout_and_grid_checks():
+    """The per-field layout (``stacked=False``, once unported) is the
+    stacked result's ``.as_fields()``; the grid and argument checks."""
     _, nargs = _inputs(1, 5, 6, seed=1)
     args = inputs_from_numpy(nargs)
-    with pytest.raises(NotImplementedError, match="derived_fields_fused"):
-        tfused.derived_fields_fused(*args, stacked=False)
+    per_field = tfused.derived_fields_fused(*args, stacked=False)
+    stacked = tfused.derived_fields_fused(*args)
+    assert isinstance(per_field, DerivedFields)
+    for got, want in zip(per_field, stacked.as_fields()):
+        assert torch.equal(got.mask, want.mask)
+        assert torch.equal(got.values, want.values)
     assert tfused.fused_supported(719, 929)
     assert not tfused.fused_supported(2, 64)
     assert not tfused.fused_supported(64, 2)
@@ -157,11 +163,12 @@ def _hex_consts(src: str) -> dict:
 
 
 def test_kernel_constants_match_the_port():
-    """The CUDA source's float literals equal the port's float32 constants
-    bit for bit (the kernel cannot be compiled here, its constants can be
-    read)."""
-    src = (Path(tfused.__file__).parent.parent / "csrc" /
-           "derived_fields.cu").read_text()
+    """The CUDA sources' float literals (in the header every kernel
+    includes) equal the port's float32 constants bit for bit (the kernels
+    cannot be compiled here, their constants can be read)."""
+    csrc = Path(tfused.__file__).parent.parent / "csrc"
+    src = (csrc / "common.cuh").read_text()
+    assert '#include "common.cuh"' in (csrc / "derived_fields.cu").read_text()
     consts = _hex_consts(src)
     c_d = float(tc.kappa)
     c_hi = float(np.float32(round(c_d * 4096.0) / 4096.0))

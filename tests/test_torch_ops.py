@@ -121,16 +121,32 @@ def test_fill_edges_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("call, jax_name", [
-    (lambda f: tops.aleveltemp(f, f, 1), "aleveltemp"),
-    (lambda f: tops.alevelhum(f, f, f, 5), "alevelhum"),
-    (lambda f: tops.alevelhum(f, f, f, 9, unit="celsius"), "alevelhum"),
-    (lambda f: tops.alevelthe(f, f, f, 2), "alevelthe"),
-    (lambda f: tops.alevelducting(f, f, f, 3), "alevelducting"),
-    (lambda f: tops.gradient(f, 1.0, 1.0, 4), "gradient"),
+    (lambda o, f: o.aleveltemp(f["tk"], f["p"], 1), "aleveltemp"),
+    (lambda o, f: o.alevelhum(f["tk"], f["q"], f["p"], 5), "alevelhum"),
+    (lambda o, f: o.alevelhum(f["tk"], f["q"], f["p"], 9, unit="celsius"),
+     "alevelhum"),
+    (lambda o, f: o.alevelthe(f["tk"], f["q"], f["p"], 2), "alevelthe"),
+    (lambda o, f: o.alevelducting(f["tk"], f["q"], f["p"], 3),
+     "alevelducting"),
+    (lambda o, f: o.gradient(f["tk"], 1.0, 1.0, 4), "gradient"),
 ])
 def test_unported_modes_raise(call, jax_name):
-    f = _t(_arrays()["tk"])
-    with pytest.raises(NotImplementedError, match=jax_name):
-        call(f)
+    """The level modes run and equal the JAX functions (op by op, masks
+    bitwise, values within rtol 2e-5); ``gradient`` mode 4 is not ported
+    and raises."""
+    a = _arrays(seed=len(jax_name))
+    names = ("tk", "q", "p")
+    tf = {k: _t(a[k]) for k in names}
+    if jax_name == "gradient":
+        with pytest.raises(NotImplementedError, match=jax_name):
+            call(tops, tf)
+    else:
+        ref = call(jops, {k: _j(a[k]) for k in names})
+        got = call(tops, tf)
+        rm = np.asarray(ref.mask)
+        np.testing.assert_array_equal(got.mask.numpy(), rm)
+        assert rm.any() and not rm.all()
+        np.testing.assert_allclose(got.values.numpy()[rm],
+                                   np.asarray(ref.values)[rm], rtol=2e-5)
     with pytest.raises(ValueError):
-        tops.aleveltemp(f, f, 7)
+        tops.aleveltemp(tf["tk"], tf["tk"], 7)
