@@ -34,7 +34,21 @@ Phases (any failure raises and exits non-zero):
    fully defined, undef lanes live; 3 launches, the all-defined route as
    the decode counts say, outputs equal to the plain version's), and
    ``alevel_suite_fused`` once at config 2's own 10x719x929 with a
-   pressure field; then the two kernels' times and one request split.
+   pressure field; then the two kernels' times and one request split;
+9. vessel icing: the MINCOG (alt 1 and 2) and ModStall kernels against
+   their plain versions at (1, 1), (3, 37), (37, 61), (9, 131), (64, 256)
+   and 719x929 on friendly inputs, adversarial ones with planted pw == 0
+   and sal == 0 points, and vs = 0 (values equal, NaN where NaN); 3
+   requests through ``staging.run_vessel_icing_np`` at 719x929 with the
+   operational 19 heights (scattered undefs, fully defined, scattered
+   undefs; each kernel launched exactly 3 times; outputs equal to the
+   plain route's); the port's ModStall against the 719x929 oracle golden
+   (rtol / atol 2e-3); then the kernels' and plain versions' times and
+   one request split into decode, H2D, prologues, kernels, D2H and encode.
+
+Every kernel's record carries its bound: the larger of the bytes it must
+move over this run's device-copy rate and the float32 operations these
+inputs need over the card's 67 TFLOP/s.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
 line is a JSON object with the kernels' records, the last
@@ -57,6 +71,16 @@ ROOT = Path(__file__).resolve().parent
 NLEV, NY, NX = 32, 719, 929
 SHAPES = ((3, 37, 61), (2, 33, 135), (1, 3, 3), (2, 5, 929), (4, 64, 256))
 RTOL = 2e-5
+#: H100 SXM float32 peak outside the tensor cores, FLOP/s (NVIDIA's data
+#: sheet); the operation side of every kernel's bound
+PEAK_F32 = 67e12
+#: float32 operations per unit of work of B1-B4, counted low from the CUDA
+#: sources (adds, multiplies, divisions; compares and selects not
+#: counted): the bytes side bounds these kernels by a wide margin
+OPS_B1_POINT = 150          # per point and level, all 12 outputs
+OPS_B2_PAIR = 2             # per column, target and level pair (p_k1)
+OPS_B2_TARGET = 80          # per column and target: two logs, the weights
+OPS_SUITE_OUTPUT = 20       # per output point of B3 / B4
 NAMES = ("p", "th", "rh", "td", "thetae", "ducting", "wspeed", "vort", "div",
          "tadv", "gradt", "tfp")
 #: phase 6's shapes: phase 3's and a 137-level column
@@ -220,10 +244,12 @@ def compare_fields(got, ref, label: str, defined_only: bool) -> float:
     return worst
 
 
-def time_ms(fn, reps: int) -> list:
-    """Per-run device times of ``fn`` in ms (CUDA events), after a warm-up."""
+def time_ms(fn, reps: int, warmup: bool = True) -> list:
+    """Per-run device times of ``fn`` in ms (CUDA events), after a warm-up
+    run unless ``warmup`` is False."""
     import torch
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
@@ -345,7 +371,8 @@ def phase_build() -> dict:
     report = Path(str(lib) + ".log")
     if report.is_file():
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log("  ptxas: " + line.strip())
     if codec != "native":
         raise AssertionError("the native host codec did not build")
@@ -842,6 +869,378 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
             "request_ms": split}
 
 
+# ---------------------------------------------------------------- phase 9
+
+#: the operational vessel-icing request: 719x929 (tools/perf_lab_mincog.py:
+#: 27), vs 5 m/s, alpha 0.52, heights 2..11 m in 0.5 m steps = 19
+#: (tools/perf_lab_mincog_fused.py:54)
+ICING_SHAPE = (719, 929)
+ICING_SCAL = (5.0, 0.52, 2.0, 11.0)
+#: the JAX package's adversarial scalars: vs = 0 makes vr = c
+ICING_VS0 = (0.0, 0.0, 1.0, 4.0)
+ICING_SHAPES = ((1, 1), (3, 37), (37, 61), (9, 131), (64, 256), ICING_SHAPE)
+#: float32 operations per unit of B5 / B6 work, counted from
+#: csrc/vessel_icing.cu and common.cuh: each add, subtract, multiply,
+#: divide, sqrt and floor is one; compares, selects, fabs and negation are
+#: not counted.  Only what the function needs is charged: loop-invariant
+#: and shared subexpressions once, each lane's own branch (the lane counts
+#: of the plain version, ops/icing.py _count), the cheaper branch where a
+#: lane's branch is not recorded.  exp_f32 23, log_f32 28, icing_f1 27;
+#: tanh_f32 per evaluation by its branch, the polynomial 12 or the exp
+#: form 27 (0 beyond |x| = 9).
+OPS_TANH_POLY = 12
+OPS_TANH_EXP = 27
+OPS_WAVE_WARM = 3           # per warmup lane-step of the wave fixed point
+OPS_WAVE_NEWTON = 14        # per Newton lane-step (slope, threshold, step)
+OPS_WAVE_CAP = 68 + 17 * 78 + 2    # the 17-node cap prediction, its 69
+#                                    tanh evaluations counted apart
+OPS_WAVE_STALL = 5          # MINCOG's stall test (shares the cap's slope)
+OPS_MINCOG_LANE = 50 * 137 + 38    # 50 RK steps + the per-lane setup
+OPS_MINCOG_ALT2 = 59        # alt 2's group-velocity liquid water content
+OPS_MINCOG_HEIGHT = 5       # per solved lane-height, any branch
+OPS_MINCOG_RES = 50         # the heat-balance residual, value only
+OPS_MINCOG_RES_D = 70       # the residual with its derivative
+#: per lane-height by branch: the safeguarded Newton (bracket ends, secant
+#: start, 8 steps, N at the root; the midpoint fallback is not charged),
+#: no sign change (the bracket ends only), sal == 0 (the closed form)
+OPS_MINCOG_ROOT = 2 * OPS_MINCOG_RES + 8 + 8 * (OPS_MINCOG_RES_D + 2) + 6
+OPS_MINCOG_NOROOT = 2 * OPS_MINCOG_RES
+OPS_MINCOG_SAL0 = OPS_MINCOG_RES + 3
+OPS_MS_LANE = 50 * 138 + 35     # 50 RK steps + the per-lane setup
+OPS_MS_HEIGHT = 8           # per lane and height outside the loop
+OPS_MS_WARM = 40            # per warmup freezing-fraction lane-step
+OPS_MS_NEWTON = 68          # per lane-step after it (slope, root, floor)
+OPS_MS_CAP = 108            # per lane-height through the cap resolution
+
+
+def make_icing_inputs(ny, nx, seed, undef_frac=1 / 23, adversarial=False,
+                      plant=False):
+    """The 11 sentinel inputs (sal, wave, x_wind, y_wind, airtemp, rh, sst,
+    p, pw, aice, depth) in the JAX package's kernel-test ranges
+    (tests/test_icing_fused.py:20-43): ice cover up to 0.5 (gated-off
+    points), waves from 0.1 m (from 0 when ``adversarial``: skip points),
+    and with ``adversarial`` long periods over shallow water (the wave
+    fixed point's Newton phase and cap).  ``plant`` sets pw == 0 on every
+    7th point and sal == 0 on every 11th."""
+    rng = np.random.default_rng(seed)
+
+    def f(lo, hi):
+        return sentinel(rng, lo, hi, (ny, nx), undef_frac)
+
+    a = [f(0.0, 35.0), f(0.0 if adversarial else 0.1, 8.0),
+         f(-25.0, 25.0), f(-25.0, 25.0), f(-25.0, 2.0), f(0.3, 1.0),
+         f(-1.0, 8.0), f(960.0, 1040.0),
+         f(6.0, 14.0) if adversarial else f(2.0, 12.0), f(0.0, 0.5),
+         f(2.0, 40.0) if adversarial else f(5.0, 500.0)]
+    if plant:
+        a[8].reshape(-1)[::7] = 0.0
+        a[0].reshape(-1)[3::11] = 0.0
+    return a
+
+
+def icing_equal(got, ref, label: str) -> float:
+    """Kernel vs plain Fields: masks bitwise, values equal (NaN where NaN);
+    returns the max abs error over the points that are not both NaN."""
+    import torch
+    if not torch.equal(got.mask, ref.mask):
+        raise AssertionError(f"{label}: masks differ at "
+                             f"{int((got.mask != ref.mask).sum())} points")
+    g, r = got.values, ref.values
+    same = (g == r) | (torch.isnan(g) & torch.isnan(r))
+    if not bool(same.all()):
+        k = int((~same).reshape(-1).nonzero()[0, 0])
+        raise AssertionError(
+            f"{label}: {int((~same).sum())} values differ, e.g. kernel "
+            f"{float(g.reshape(-1)[k])!r} plain {float(r.reshape(-1)[k])!r}")
+    both_nan = torch.isnan(g) & torch.isnan(r)
+    return float(torch.where(both_nan, torch.zeros_like(g),
+                             (g - r).abs()).max())
+
+
+def phase_icing_kernels(dev) -> dict:
+    """B5 and B6 against their plain versions at ICING_SHAPES, and on an
+    empty grid (no launch); the worst error of each kernel."""
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    cases, worst = 0, {"mincog": 0.0, "modstall": 0.0}
+    for shape in ICING_SHAPES:
+        for kind, adversarial, scal in (("friendly", False, ICING_SCAL),
+                                        ("adversarial", True, ICING_SCAL),
+                                        ("vs=0", True, ICING_VS0)):
+            raw = make_icing_inputs(*shape, seed=sum(shape) + len(kind),
+                                    adversarial=adversarial,
+                                    plant=adversarial)
+            fields = [from_sentinel(a, device=dev) for a in raw]
+            for alt in (1, 2):
+                worst["mincog"] = max(worst["mincog"], icing_equal(
+                    F.vessel_icing_mincog_fused(*fields, *scal, alt),
+                    F.vessel_icing_mincog_plain(*fields, *scal, alt),
+                    f"mincog alt {alt} {shape} {kind}"))
+                cases += 1
+            worst["modstall"] = max(worst["modstall"], icing_equal(
+                F.vessel_icing_modstall_fused(*fields, *scal),
+                F.vessel_icing_modstall_plain(*fields, *scal),
+                f"modstall {shape} {kind}"))
+            cases += 1
+            del fields
+    empty = [from_sentinel(np.zeros((0, 7), np.float32), device=dev)] * 11
+    before = (F.vessel_icing_mincog_fused.launches,
+              F.vessel_icing_modstall_fused.launches)
+    for out in (F.vessel_icing_mincog_fused(*empty, *ICING_SCAL, 1),
+                F.vessel_icing_modstall_fused(*empty, *ICING_SCAL)):
+        if tuple(out.values.shape) != (0, 7):
+            raise AssertionError(f"empty grid: shape {out.values.shape}")
+    if before != (F.vessel_icing_mincog_fused.launches,
+                  F.vessel_icing_modstall_fused.launches):
+        raise AssertionError("empty grid: a kernel was launched")
+    log(f"mincog (alt 1, 2) and modstall kernels == plain versions in "
+        f"{cases} cases at {len(ICING_SHAPES)} shapes x friendly / "
+        f"adversarial with pw == 0 and sal == 0 / vs = 0: max abs err "
+        f"{worst!r}; an empty grid launches nothing")
+    return {"cases": cases, "max_abs_err": worst}
+
+
+def icing_requests():
+    """Phase 9's three requests at ICING_SHAPE: (label, inputs, alt)."""
+    return [("scattered undefs", make_icing_inputs(*ICING_SHAPE, 41, 0.01), 1),
+            ("fully defined", make_icing_inputs(*ICING_SHAPE, 42, 0.0), 2),
+            ("scattered undefs", make_icing_inputs(*ICING_SHAPE, 43, 0.002),
+             1)]
+
+
+def icing_plain_request(args, dev, alt: int) -> dict:
+    """One request through the plain route on the card: the same decode
+    and upload, the plain versions in place of the two kernels."""
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    fields = staging._icing_upload_step(
+        staging.HostStager(11).decode(*args), dev)
+    outs = dict(zip(("overland", "mertins"), staging._icing_products(
+        fields, *ICING_SCAL, alt, ("overland", "mertins"))))
+    outs["modstall"] = F.vessel_icing_modstall_plain(*fields, *ICING_SCAL)
+    outs["mincog"] = F.vessel_icing_mincog_plain(*fields, *ICING_SCAL, alt)
+    return {k: f.to_sentinel().cpu().numpy() for k, f in outs.items()}
+
+
+def check_icing_physics(out: dict, ny: int, nx: int) -> None:
+    """The repo's own bounds on phase 9's outputs: the shape, finite
+    defined values, gated-off points present, Mertins on its discrete
+    rates, and the two solvers' rates non-negative (|ice| / number) with
+    icing present (Overland's cubic is signed)."""
+    for name, a in out.items():
+        if a.shape != (ny, nx) or a.dtype != np.float32:
+            raise AssertionError(f"{name}: {a.shape} {a.dtype}")
+        d = a[a != np.float32(1e35)]
+        if not (0 < d.size < a.size and np.isfinite(d).all()):
+            raise AssertionError(f"{name}: undefined or non-finite rates")
+        rates = np.float32([0.0, 0.8333, 2.0833, 4.375, 6.25])
+        if name == "mertins" and not np.isin(d, rates).all():
+            raise AssertionError("mertins: a rate outside its table")
+        if name in ("mincog", "modstall") and not (
+                (d >= 0).all() and (d > 0).any()):
+            raise AssertionError(f"{name}: rates outside the physical bounds")
+
+
+def phase_icing_path(dev) -> dict:
+    """3 requests through run_vessel_icing_np, each against the plain
+    route; the launch counts of both kernels."""
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    requests = icing_requests()
+    F.vessel_icing_mincog_fused.launches = 0
+    F.vessel_icing_modstall_fused.launches = 0
+    outs = [staging.run_vessel_icing_np(*args, *ICING_SCAL, alt=alt,
+                                        device=dev)
+            for _, args, alt in requests]
+    torch.cuda.synchronize(dev)
+    launches = {"mincog": F.vessel_icing_mincog_fused.launches,
+                "modstall": F.vessel_icing_modstall_fused.launches}
+    log(f"icing entry: 3 requests at {ICING_SHAPE[0]}x{ICING_SHAPE[1]}, "
+        f"{int((ICING_SCAL[3] - ICING_SCAL[2]) * 2 + 1)} heights, launches "
+        f"{launches}")
+    if launches != {"mincog": 3, "modstall": 3}:
+        raise AssertionError(f"expected 3 launches of each kernel, got "
+                             f"{launches}")
+    for k, ((label, args, alt), out) in enumerate(zip(requests, outs)):
+        ref = icing_plain_request(args, dev, alt)
+        if list(out) != list(staging.ICING_PRODUCTS):
+            raise AssertionError(f"icing request {k + 1}: keys {list(out)}")
+        for name in out:
+            g, r = out[name], ref[name]
+            same = (g.view(np.int32) == r.view(np.int32)) | (
+                np.isnan(g) & np.isnan(r))
+            if not same.all():
+                raise AssertionError(
+                    f"icing request {k + 1} {name}: {int((~same).sum())} "
+                    f"points differ from the plain route")
+        check_icing_physics(out, *ICING_SHAPE)
+        undef = [int((o == np.float32(1e35)).sum()) for o in out.values()]
+        log(f"icing request {k + 1} ({label}, alt {alt}): 4 products == "
+            f"plain route, undefined points {undef}")
+    return {"launches": launches}
+
+
+def phase_icing_golden(dev) -> dict:
+    """The port's ModStall at 719x929 against the compiled reference's
+    golden (tests/conformance_cases.py:372-377, tests/goldens/
+    goldens_large.npz), on the points both define."""
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    sys.path.insert(0, str(ROOT / "tests"))
+    from conformance_cases import LARGE_CASES, case_inputs
+    case = next(c for c in LARGE_CASES
+                if c.name == "large_vesselIcingModStall")
+    fields = [from_sentinel(a, device=dev) for a in case_inputs(case)]
+    s = case.scalars
+    out = F.vessel_icing_modstall_fused(*fields, s["vs"], s["alpha"],
+                                        s["zmin"], s["zmax"])
+    with np.load(ROOT / "tests" / "goldens" / "goldens_large.npz") as g:
+        ref = g[case.name + "__out"]
+    mask = out.mask.cpu().numpy()
+    vals = out.values.cpu().numpy()
+    both = mask & (ref != np.float32(1e35)) & ~np.isnan(ref)
+    err = np.abs(vals[both] - ref[both])
+    bad = ~(err <= case.atol + case.rtol * np.abs(ref[both]))
+    log(f"modstall at 719x929 vs the oracle golden: {int(both.sum())} "
+        f"points both defined, max abs err {float(err.max())!r}, "
+        f"{int(bad.sum())} outside rtol/atol {case.rtol}")
+    if not both.any() or bad.any():
+        raise AssertionError("modstall disagrees with the 719x929 golden")
+    return {"points": int(both.sum()), "max_abs_err": float(err.max()),
+            "rtol": case.rtol, "atol": case.atol}
+
+
+def icing_bound(trips: dict, number: int, npts: int, nplanes: int,
+                nflags: int, copy_gbps: float, alt) -> dict:
+    """The least time for B5 (``alt`` 1 or 2) or B6 (``alt`` None) on
+    these inputs: bytes (planes and flags read once, the output written
+    once) over the copy rate, float32 operations (the lane counts the
+    plain version recorded) over PEAK_F32."""
+    def n(key):
+        return trips.get(key, 0)
+
+    nbytes = npts * (4 * nplanes + nflags + 4)
+    ops = (n("wave_warm") * OPS_WAVE_WARM + n("wave_newton") * OPS_WAVE_NEWTON
+           + n("cap") * OPS_WAVE_CAP + n("tanh_poly") * OPS_TANH_POLY
+           + n("tanh_exp") * OPS_TANH_EXP)
+    if alt is not None:
+        ops += (n("cap") * OPS_WAVE_STALL
+                + n("solved") * (OPS_MINCOG_LANE + number * OPS_MINCOG_HEIGHT
+                                 + (OPS_MINCOG_ALT2 if alt == 2 else 0))
+                + n("h_root") * OPS_MINCOG_ROOT
+                + n("h_noroot") * OPS_MINCOG_NOROOT
+                + n("h_sal0") * OPS_MINCOG_SAL0)
+    else:
+        ops += (n("solved") * (OPS_MS_LANE + number * OPS_MS_HEIGHT)
+                + n("height_warm") * OPS_MS_WARM
+                + n("height_newton") * OPS_MS_NEWTON
+                + n("height_cap") * OPS_MS_CAP)
+    b_ms = nbytes / copy_gbps / 1e6
+    o_ms = ops / PEAK_F32 * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": b_ms, "ops_ms": o_ms,
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def phase_icing_times(dev, smi: str, copy_gbps: float, reps=10,
+                      plain_reps=3, request_reps=3) -> dict:
+    """Kernel and plain times on request 1's inputs, the bounds, and one
+    request split."""
+    import math
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.field import Field
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
+    vs, alpha, zmin, zmax = ICING_SCAL
+    vsca = float(vs * math.cos(alpha))
+    number = _number(zmin, zmax)
+    decay = _mincog_decay(zmin, number)
+    _, args, _ = icing_requests()[0]
+    fields = staging._icing_upload_step(
+        staging.HostStager(11).decode(*args), dev)
+    npts = fields[0].values.numel()
+    res = {"card": smi, "shape": list(ICING_SHAPE), "heights": number}
+    g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
+    g6, p6, sh6 = F._modstall_prologue(*fields)
+    for name, launch, plain, nplanes, nflags in (
+            ("mincog", lambda: F._launch(
+                F.vessel_icing_mincog_fused, F._PLANES, p5, (g5, sh5, sk5),
+                decay, vsca, 1),
+             lambda trips=None: F._mincog_plain(g5, p5, sh5, sk5, vsca, 1,
+                                                decay, trips), 17, 3),
+            ("modstall", lambda: F._launch(
+                F.vessel_icing_modstall_fused, F._MS_PLANES, p6, (g6, sh6),
+                decay, vsca, None),
+             lambda trips=None: F._modstall_plain(g6, p6, sh6, vsca, decay,
+                                                  trips), 12, 2)):
+        k = time_ms(launch, reps)
+        trips = {}
+        plain(trips)                      # the plain version's warm-up
+        p = time_ms(plain, plain_reps, warmup=False)
+        bound = icing_bound(trips, number, npts, nplanes, nflags, copy_gbps,
+                            1 if name == "mincog" else None)
+        res[name] = {"kernel_ms": statistics.median(k), "kernel_ms_all": k,
+                     "plain_ms": statistics.median(p), "plain_ms_all": p,
+                     "trips": trips, **bound}
+        log(f"[{smi}] {name} {ICING_SHAPE[0]}x{ICING_SHAPE[1]}, {number} "
+            f"heights: kernel {res[name]['kernel_ms']:.4f} ms, plain "
+            f"{res[name]['plain_ms']:.1f} ms; bound {bound['bound_ms']:.4f} "
+            f"ms by {bound['bound_by']} ({bound['ops']:.3e} ops -> "
+            f"{bound['ops_ms']:.4f} ms; {bound['bytes'] / 1e6:.1f} MB -> "
+            f"{bound['bytes_ms']:.4f} ms); lane counts {trips}")
+    del p5, p6, g5, g6, fields
+
+    # one request, split (host clock around synchronised steps)
+    stager = staging.HostStager(11)
+    keys = ("decode", "h2d", "overland_mertins", "mincog_prologue",
+            "mincog_kernel", "modstall_prologue", "modstall_kernel",
+            "stack", "d2h", "encode", "total")
+    parts = {k: [] for k in keys}
+    for _ in range(request_reps):
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize(dev)
+            marks.append(time.perf_counter())
+
+        mark()
+        host = stager.decode(*args)
+        mark()
+        fields = staging._icing_upload_step(host, dev)
+        mark()
+        outs = staging._icing_products(fields, *ICING_SCAL, 1,
+                                       ("overland", "mertins"))
+        mark()
+        g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
+        mark()
+        mc = F._launch(F.vessel_icing_mincog_fused, F._PLANES, p5,
+                       (g5, sh5, sk5), decay, vsca, 1)
+        mark()
+        g6, p6, sh6 = F._modstall_prologue(*fields)
+        mark()
+        ms = F._launch(F.vessel_icing_modstall_fused, F._MS_PLANES, p6,
+                       (g6, sh6), decay, vsca, None)
+        mark()
+        buf = staging._icing_stack(outs + [Field(ms, g6), Field(mc, g5)])
+        mark()
+        host = staging._icing_fetch(buf, 4, ICING_SHAPE)
+        mark()
+        staging._icing_encode_step(*host, staging.ICING_PRODUCTS, 1e35)
+        mark()
+        for key, a, b in zip(keys, marks, marks[1:]):
+            parts[key].append((b - a) * 1e3)
+        parts["total"].append((marks[-1] - marks[0]) * 1e3)
+        del fields, outs, p5, p6, buf
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    res["request_ms"] = split
+    log(f"[{smi}] icing request (scattered undefs, alt 1) median of "
+        f"{request_reps}, ms: " + " ".join(f"{k}={v:.2f}"
+                                          for k, v in split.items()))
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -875,6 +1274,11 @@ def main() -> int:
     iso = phase_isobaric(dev, smi, times["copy_gbps"])
     log("== phase 8: the suite entry and the a-level suite at full size")
     suites = phase_suites(dev, smi, times["copy_gbps"])
+    log("== phase 9: vessel icing")
+    icing_kernels = phase_icing_kernels(dev)
+    icing_path = phase_icing_path(dev)
+    icing_golden = phase_icing_golden(dev)
+    icing_times = phase_icing_times(dev, smi, times["copy_gbps"])
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -882,8 +1286,35 @@ def main() -> int:
         "env": env, "build": build, "kernel_max_rel_err": worst,
         "main_path": main_path, "times": times,
         "new_kernels_max_abs_err": new_worst, "isobaric": iso,
-        "suites": suites, "wall_s": wall}))
+        "suites": suites, "icing": {
+            "kernels": icing_kernels, "path": icing_path,
+            "golden": icing_golden, "times": icing_times},
+        "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
+    copy = times["copy_gbps"]
+
+    def bound(nbytes, ops):
+        b_ms, o_ms = nbytes / copy / 1e6, ops / PEAK_F32 * 1e3
+        return {"bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "library_ms": None}
+
+    pts1 = NLEV * NY * NX
+    nlev4, ny4, nx4 = ISO_SHAPE
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
+    nt4 = len(STANDARD_PLEVELS)
+    an, ay, ax = A_SUITE_SHAPE
+    nout = len(CONFIG2["temps"] + CONFIG2["hums_q"] + CONFIG2["hums_rh"])
+    bounds = {
+        "derived_fields": bound(layout_bytes(NLEV, NY, NX, False),
+                                OPS_B1_POINT * pts1),
+        "vertical_interp": bound(
+            iso["interp_bytes"]["bracket"],
+            ny4 * nx4 * nt4 * ((nlev4 - 1) * OPS_B2_PAIR + OPS_B2_TARGET)),
+        "alevel_suite": bound(suites["bytes"]["alevel"],
+                              OPS_SUITE_OUTPUT * nout * an * ay * ax),
+        "hlevel_suite": bound(suites["bytes"]["hlevel"],
+                              OPS_SUITE_OUTPUT * nout * pts1)}
     kernels = [{
         "name": "derived_fields",
         "route": "cuda",
@@ -893,6 +1324,7 @@ def main() -> int:
         "max_abs_err": main_path["max_abs_err"],
         "ms": times["masked"]["kernel_ms"],
         "plain_ms": times["masked"]["plain_ms"],
+        **bounds["derived_fields"],
     }, {
         "name": "vertical_interp",
         "route": "cuda",
@@ -902,6 +1334,7 @@ def main() -> int:
         "max_abs_err": max(iso["max_abs_err"], new_worst["interp"]),
         "ms": iso["times"]["interp_ms"],
         "plain_ms": iso["times"]["interp_plain_ms"],
+        **bounds["vertical_interp"],
     }, {
         "name": "alevel_suite",
         "route": "cuda",
@@ -912,6 +1345,7 @@ def main() -> int:
                            new_worst["alevel_suite"]),
         "ms": suites["times"]["alevel_ms"],
         "plain_ms": suites["times"]["alevel_plain_ms"],
+        **bounds["alevel_suite"],
     }, {
         "name": "hlevel_suite",
         "route": "cuda",
@@ -922,7 +1356,21 @@ def main() -> int:
                            new_worst["hlevel_suite"]),
         "ms": suites["times"]["hlevel_ms"],
         "plain_ms": suites["times"]["hlevel_plain_ms"],
-    }]
+        **bounds["hlevel_suite"],
+    }] + [{
+        "name": f"vessel_icing_{name}",
+        "route": "cuda",
+        "source": src + "vessel_icing.cu",
+        "replaces": ref + ("icing_fused.py:69" if name == "mincog"
+                           else "icing_fused.py:186"),
+        "launches": icing_path["launches"][name],
+        "max_abs_err": icing_kernels["max_abs_err"][name],
+        "ms": icing_times[name]["kernel_ms"],
+        "plain_ms": icing_times[name]["plain_ms"],
+        "bound_ms": icing_times[name]["bound_ms"],
+        "bound_by": icing_times[name]["bound_by"],
+        "library_ms": None,
+    } for name in ("mincog", "modstall")]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,20 +1,24 @@
 """mi_fieldcalc_tpu_torch — PyTorch/CUDA port of the derived-field engine.
 
 A second package beside :mod:`mi_fieldcalc_tpu` (the JAX reference, which
-stays as it is).  It serves the 12-output derived-field pipeline from
-sentinel-coded numpy in to sentinel-coded numpy out, through one
-hand-written CUDA kernel on an NVIDIA H100 (``csrc/derived_fields.cu``).
+stays as it is).  It serves the 12-output derived-field pipeline, the
+level-conversion suites and the vessel-icing products from sentinel-coded
+numpy in to sentinel-coded numpy out, through hand-written CUDA kernels on
+an NVIDIA H100 (``csrc/*.cu``).
 Module names mirror the JAX package, so each counterpart is found by path:
 
 * :mod:`.field` — :class:`Field` (float32 values + bool mask tensors) and
   the sentinel codecs,
 * :mod:`.constants`, :mod:`._libm` — the constants, EWT table and the
-  deterministic Exner pow the pipeline uses,
-* :mod:`.ops` — the pipeline's operators in plain PyTorch, and
-  :mod:`.ops.fused` — the CUDA kernel's wrapper with its plain version,
+  deterministic pow, log, exp and tanh,
+* :mod:`.ops` — the operators in plain PyTorch, and the CUDA kernels'
+  wrappers with their plain versions (:mod:`.ops.fused`,
+  :mod:`.ops.vertical_fused`, :mod:`.ops.fused_suite`,
+  :mod:`.ops.icing_fused`),
 * :mod:`.models.pipeline` — ``derived_fields`` and the stacked layout,
 * :mod:`.native`, :mod:`.staging` — the host codec binding and the
-  production entry :func:`.staging.run_derived_fields_np`.
+  serving entries (``run_derived_fields_np``, ``run_hlevel_suite_np``,
+  :func:`.staging.run_vessel_icing_np`).
 
 The package imports ``torch`` and numpy only, never ``jax``.  Importing it
 builds and loads nothing: the CUDA library is compiled at first use
@@ -27,3 +31,9 @@ from .field import (  # noqa: F401
     UNDEF, Field, ValuesDefined, defined_state, from_arrays, from_sentinel,
     from_values, full_undef,
 )
+from .ops import (  # noqa: F401,E402
+    vessel_icing_mertins, vessel_icing_mincog, vessel_icing_mincog_fused,
+    vessel_icing_modstall, vessel_icing_modstall_fused,
+    vessel_icing_overland,
+)
+from .staging import run_vessel_icing_np  # noqa: F401,E402

@@ -121,8 +121,12 @@ def load_library() -> ctypes.CDLL:
     lib.mf_alevel_suite.argtypes = [p] * 8 + [ip, i, ip, p, p] + [i] * 4 + [p]
     lib.mf_hlevel_suite.argtypes = ([p] * 10 + [ip, i, ip, p, p] + [i] * 4
                                     + [p])
+    f = ctypes.c_float
+    lib.mf_vessel_icing_mincog.argtypes = [pp] + [p] * 4 + [i, f, i, p, i, p]
+    lib.mf_vessel_icing_modstall.argtypes = [pp] + [p] * 3 + [i, f, p, i, p]
     for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,
-               lib.mf_alevel_suite, lib.mf_hlevel_suite):
+               lib.mf_alevel_suite, lib.mf_hlevel_suite,
+               lib.mf_vessel_icing_mincog, lib.mf_vessel_icing_modstall):
         fn.restype = i
     lib.mf_error_string.argtypes = [i]
     lib.mf_error_string.restype = ctypes.c_char_p

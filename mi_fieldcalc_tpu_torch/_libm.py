@@ -1,7 +1,7 @@
-"""Deterministic float32 transcendentals: the Exner pow and the log.
+"""Deterministic float32 transcendentals: the Exner pow, log, exp and tanh.
 
-PyTorch port of :func:`mi_fieldcalc_tpu._libm.pow_posc_f32` and
-:func:`mi_fieldcalc_tpu._libm.log_f32`.  They use only
+PyTorch port of :func:`mi_fieldcalc_tpu._libm.pow_posc_f32`, ``log_f32``,
+``exp_f32`` and ``tanh_f32``.  They use only
 mul/add/select/int/bitcast, each rounded on its own, so they give the
 bits the JAX package gives (and the CUDA kernels, which are compiled with
 ``-fmad=false`` so no multiply-add is contracted; ``csrc/common.cuh``
@@ -16,7 +16,7 @@ import torch
 
 from .field import f32
 
-__all__ = ["log_f32", "pow_posc_f32"]
+__all__ = ["exp_f32", "log_f32", "pow_posc_f32", "tanh_f32"]
 
 _LOG2E = 1.44269504088896341
 #: ln2 split (Cephes C1/C2)
@@ -102,3 +102,51 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     r = torch.where(x > 0, r, torch.where(x == 0, torch.full_like(
         x, float("-inf")), nan))
     return torch.where(torch.isfinite(x), r, torch.where(x > 0, x, nan))
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """Cephes expf (``_libm.py:43-70`` of the JAX package): clip to
+    ``[-104, 89.5]``, reduce by ln2 in two parts, the degree-5 polynomial,
+    and ``2**n`` as two bitcast factors, so the result underflows gradually
+    and overflows to inf where libm's does.  The exponent split is
+    ``n >> 1``, the floor division JAX's ``n // 2`` is (a C-style
+    truncating division would differ for odd negative ``n``); a NaN ``z``
+    converts to 0 (XLA's rule; the result is NaN either way)."""
+    x = x.to(torch.float32).clamp(f32(-104.0), f32(89.5))
+    z = torch.floor(f32(_LOG2E) * x + 0.5)
+    r = x - z * f32(_LN2_HI)
+    r = r - z * f32(_LN2_LO)
+    p = torch.full_like(r, f32(_EXP_Q[0]))
+    for coef in _EXP_Q[1:]:
+        p = p * r + f32(coef)
+    e = r * r * p + r + 1.0
+    n = torch.nan_to_num(z, nan=0.0).clamp(-252.0, 254.0).to(torch.int32)
+    n1 = n >> 1
+    n2 = n - n1
+    s1 = ((n1 + 127) << 23).view(torch.float32)
+    s2 = ((n2 + 127) << 23).view(torch.float32)
+    return (e * s1) * s2
+
+
+#: Cephes tanhf odd polynomial (|x| < 0.625)
+_TANH_P = (-5.70498872745e-3, 2.06390887954e-2, -5.37397155531e-2,
+           1.33314422036e-1, -3.33332819422e-1)
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """Cephes tanhf (``_libm.py:73-87`` of the JAX package): the odd
+    polynomial for ``|x| < 0.625``, else ``1 - 2/(exp_f32(2|x|) + 1)``
+    with the sign restored, and ``sign(x)`` beyond 9.  The quotient divides
+    by a tensor (IEEE on every device)."""
+    x = x.to(torch.float32)
+    ax = x.abs()
+    z2 = x * x
+    p = torch.full_like(z2, f32(_TANH_P[0]))
+    for coef in _TANH_P[1:]:
+        p = p * z2 + f32(coef)
+    small = z2 * x * p + x
+    two = torch.full_like(x, 2.0)
+    big = 1.0 - torch.div(two, exp_f32(2.0 * ax) + 1.0)
+    big = torch.where(x < 0, -big, big)
+    out = torch.where(ax < f32(0.625), small, big)
+    return torch.where(ax > 9.0, torch.sign(x), out)

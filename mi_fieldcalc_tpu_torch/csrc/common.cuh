@@ -6,13 +6,13 @@
 //
 // Numerics: the kernels are built with -fmad=false and without
 // --use_fast_math.  No multiply-add is contracted, '/' and sqrtf stay
-// IEEE, and the deterministic pow and log below give the bits of the JAX
-// package's _libm.pow_posc_f32 and _libm.log_f32 (and of the port's torch
-// versions in _libm.py).  The table coordinate's float-to-int conversion
-// follows XLA's (truncate, saturate, NaN -> 0) through a clamp to
-// [-1, 40] in float before the cast.  Constants are hex literals equal bit
-// for bit to the numpy float32 constants of the port (checked by
-// tests/test_torch_fused.py).
+// IEEE, and the deterministic pow, log, exp and tanh below give the bits of
+// the JAX package's _libm.pow_posc_f32, log_f32, exp_f32 and tanh_f32 (and
+// of the port's torch versions in _libm.py).  The table coordinate's
+// float-to-int conversion follows XLA's (truncate, saturate, NaN -> 0)
+// through a clamp to [-1, 40] in float before the cast.  Constants are hex
+// literals equal bit for bit to the numpy float32 constants of the port
+// (checked by tests/test_torch_fused.py and tests/test_torch_icing.py).
 
 #ifndef MF_COMMON_CUH_
 #define MF_COMMON_CUH_
@@ -146,6 +146,58 @@ static __device__ __forceinline__ float log_f32(float x) {
   }
   if (x < kMinNormal) return logf(x);
   return x == inf ? x : r;
+}
+
+// NaN-propagating maximum and minimum with torch.maximum / torch.minimum's
+// operand order (jnp.maximum / jnp.minimum propagate NaN too; fmaxf and
+// fminf drop it).
+static __device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : (a < b ? b : a));
+}
+static __device__ __forceinline__ float min_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : (b < a ? b : a));
+}
+
+// _libm.exp_f32, literally: clip to [-104, 89.5], reduce by ln2 in two
+// parts, the Cephes degree-5 polynomial, and 2^n as two bitcast factors.
+// The split n1 = n >> 1 is the floor division of JAX's n // 2 (C's '/'
+// truncates, which differs for odd negative n); a NaN z converts to 0.
+static constexpr float kLog2e = 0x1.715476p+0f;     // 1.44269504088896341
+static __device__ __forceinline__ float exp_f32(float x) {
+  x = clip_nan(x, -104.0f, 89.5f);
+  const float z = floorf(kLog2e * x + 0.5f);
+  float r = x - z * kLn2Hi;
+  r = r - z * kLn2Lo;
+  float p = 0x1.a0d2cep-13f;
+  p = p * r + 0x1.6e879cp-10f;
+  p = p * r + 0x1.11121p-7f;
+  p = p * r + 0x1.555382p-5f;
+  p = p * r + 0x1.555554p-3f;
+  p = p * r + 0x1p-1f;
+  const float e = r * r * p + r + 1.0f;
+  const float zc = z != z ? 0.0f : fminf(fmaxf(z, -252.0f), 254.0f);
+  const int n = static_cast<int>(zc);
+  const int n1 = n >> 1;
+  const int n2 = n - n1;
+  return (e * __int_as_float((n1 + 127) << 23)) *
+         __int_as_float((n2 + 127) << 23);
+}
+
+// _libm.tanh_f32, literally: the odd polynomial below 0.625, else
+// 1 - 2/(exp_f32(2|x|) + 1) with the sign restored, and sign(x) beyond 9.
+static __device__ __forceinline__ float tanh_f32(float x) {
+  const float ax = fabsf(x);
+  const float z2 = x * x;
+  float p = -0x1.75e1d4p-8f;
+  p = p * z2 + 0x1.52269cp-6f;
+  p = p * z2 + -0x1.b83c5ap-5f;
+  p = p * z2 + 0x1.110726p-3f;
+  p = p * z2 + -0x1.555532p-2f;
+  const float small = z2 * x * p + x;
+  float big = 1.0f - 2.0f / (exp_f32(2.0f * ax) + 1.0f);
+  big = x < 0.0f ? -big : big;
+  const float out = ax < 0.625f ? small : big;
+  return ax > 9.0f ? copysignf(1.0f, x) : out;
 }
 
 // Table coordinate and saturation vapour pressure (esat_table).

@@ -19,6 +19,12 @@ same way: the consumed stacks in one ``decode_pad_batch``, ``ps``, H2D,
 one suite-kernel launch, D2H and one ``encode_trim_batch`` with the
 suite's mask-plane map.
 
+:func:`run_vessel_icing_np` serves the four vessel-icing products from
+one ``HostStager(k=11)`` decode of the shared surface fields: one H2D copy
+of the values block and one of the mask block, the products in request
+order (MINCOG and ModStall through their kernels), the results stacked
+into one device buffer, one D2H copy and one ``encode_trim_batch``.
+
 The grid is the logical ``(ny, nx)``: the TPU's padded layout and aligned
 re-grid are not ported.  ``stream_derived_fields_np`` (copy/compute
 overlap on CUDA streams) is not ported yet.
@@ -38,7 +44,8 @@ from .models.pipeline import DerivedFields, DerivedFieldsStacked
 from .ops._harness import not_ported
 from .ops.fused_suite import _build_reqs, _consumes, hlevel_suite_stacked
 
-__all__ = ["HostStager", "run_derived_fields_np", "run_hlevel_suite_np"]
+__all__ = ["HostStager", "run_derived_fields_np", "run_hlevel_suite_np",
+           "run_vessel_icing_np"]
 
 
 class HostStager:
@@ -252,3 +259,111 @@ def run_hlevel_suite_np(tk, q, rh, ps, alevel, blevel,
     out = _suite_compute(_suite_upload_step(host, reqs, dev), reqs,
                          all_defined)
     return _suite_encode_step(*_fetch(out), out.mask_map, reqs, undef)
+
+
+#: the vessel-icing products, in the JAX entry's default order
+ICING_PRODUCTS = ("overland", "mertins", "modstall", "mincog")
+
+
+def _icing_upload_step(host, device: torch.device) -> tuple:
+    """One copy of the decoded values block and one of the mask block to
+    ``device``; the 11 Fields are views of them."""
+    vals, mask = host
+    dv = torch.from_numpy(vals).to(device, copy=True)
+    dm = torch.from_numpy(mask).to(device, copy=True).view(torch.bool)
+    return tuple(Field(dv[i], dm[i]) for i in range(dv.shape[0]))
+
+
+def _icing_products(fields, vs, alpha, zmin, zmax, alt, products) -> list:
+    """The requested products as Fields, in request order (MINCOG and
+    ModStall through their kernels on CUDA tensors)."""
+    from .ops.icing import vessel_icing_mertins, vessel_icing_overland
+    from .ops.icing_fused import (vessel_icing_mincog_fused,
+                                  vessel_icing_modstall_fused)
+    sal, _, xw, yw, at, _, sst, _, _, aice, _ = fields
+    outs = []
+    for prod in products:
+        if prod == "overland":
+            outs.append(vessel_icing_overland(at, sst, xw, yw, sal, aice))
+        elif prod == "mertins":
+            outs.append(vessel_icing_mertins(at, sst, xw, yw, sal, aice))
+        elif prod == "modstall":
+            outs.append(vessel_icing_modstall_fused(*fields, vs, alpha,
+                                                    zmin, zmax))
+        else:
+            outs.append(vessel_icing_mincog_fused(*fields, vs, alpha, zmin,
+                                                  zmax, alt))
+    return outs
+
+
+def _icing_stack(outs) -> torch.Tensor:
+    """The products stacked into one device byte buffer: K float32 value
+    planes, then K mask planes, so one D2H copy fetches both."""
+    k = len(outs)
+    shape = tuple(outs[0].values.shape)
+    n = k * outs[0].values.numel()
+    buf = torch.empty(5 * n, dtype=torch.uint8,
+                      device=outs[0].values.device)
+    torch.stack([f.values for f in outs],
+                out=buf[:4 * n].view(torch.float32).view((k,) + shape))
+    torch.stack([f.mask for f in outs],
+                out=buf[4 * n:].view(torch.bool).view((k,) + shape))
+    return buf
+
+
+def _icing_fetch(buf, k: int, shape) -> tuple:
+    """One D2H copy of the product buffer -> numpy ``(values, uint8
+    masks)``, each ``[k, ny, nx]``."""
+    host = buf.cpu().numpy()
+    n = k * int(np.prod(shape))
+    return (host[:4 * n].view(np.float32).reshape((k,) + tuple(shape)),
+            host[4 * n:].reshape((k,) + tuple(shape)))
+
+
+def _icing_encode_step(values, masks, products,
+                       undef: float) -> Dict[str, np.ndarray]:
+    ny, nx = values.shape[-2:]
+    planes = native.encode_trim_batch(values, masks, ny, nx,
+                                      tuple(range(len(products))), undef)
+    return dict(zip(products, planes))
+
+
+def run_vessel_icing_np(sal, wave, x_wind, y_wind, airtemp, rh, sst, p,
+                        pw, aice, depth,
+                        vs: float, alpha: float, zmin: float, zmax: float,
+                        alt: int = 1, products=ICING_PRODUCTS,
+                        undef: float = UNDEF,
+                        align: Optional[bool] = None,
+                        device="cuda") -> Dict[str, np.ndarray]:
+    """All requested vessel-icing products from one decode of the shared
+    inputs: the production form of the reference's per-product
+    ``vesselIcing*`` calls.
+
+    Inputs: ``(ny, nx)`` sentinel arrays (the ModStall / MINCOG set;
+    Overland and Mertins read ``airtemp, sst, x_wind, y_wind, sal, aice``);
+    scalars as :func:`.ops.icing.vessel_icing_mincog`.  Returns
+    ``{product: sentinel array}`` in request order.
+
+    ``device="cuda"`` runs the MINCOG and ModStall kernels once each per
+    request (and raises where CUDA is not available); ``device="cpu"``
+    runs their plain versions.  ``align=True`` (the TPU's aligned re-grid)
+    is not ported; ``align=None`` reads no environment variable."""
+    dev = _resolve_device(device, "run_vessel_icing_np")
+    for prod in products:
+        if prod not in ICING_PRODUCTS:
+            raise ValueError(f"run_vessel_icing_np: unknown product "
+                             f"{prod!r} (known: {ICING_PRODUCTS})")
+    if align:
+        raise not_ported("mi_fieldcalc_tpu.staging.run_vessel_icing_np",
+                         "the aligned re-grid (align=True)")
+    products = tuple(dict.fromkeys(products))
+    if not products:
+        return {}
+    arrays = (sal, wave, x_wind, y_wind, airtemp, rh, sst, p, pw, aice,
+              depth)
+    stager = _stager_cache(11, float(undef))
+    fields = _icing_upload_step(stager.decode(*arrays), dev)
+    buf = _icing_stack(_icing_products(fields, vs, alpha, zmin, zmax, alt,
+                                       products))
+    host = _icing_fetch(buf, len(products), fields[0].values.shape)
+    return _icing_encode_step(*host, products, undef)
