@@ -34,7 +34,9 @@ Phases (any failure raises and exits non-zero):
    fully defined, undef lanes live; 3 launches, the all-defined route as
    the decode counts say, outputs equal to the plain version's), and
    ``alevel_suite_fused`` once at config 2's own 10x719x929 with a
-   pressure field; then the two kernels' times and one request split;
+   pressure field (both kernels bit for bit); then the two kernels' times
+   through their wrappers, the launch alone (queued behind a busy wait) on
+   these inputs and on smooth fields, and one request split;
 9. vessel icing: the MINCOG (alt 1 and 2) and ModStall kernels against
    their plain versions at (1, 1), (3, 37), (37, 61), (9, 131), (64, 256)
    and 719x929 on friendly inputs, adversarial ones with planted pw == 0
@@ -60,9 +62,16 @@ maximum SM clock, read from the card in this run (the kernels are built
 data sheet's 67 TFLOP/s counts a fused multiply-add as two).
 
     python3 chip_smoke.py --icing-times DIR [DIR ...]
+    python3 chip_smoke.py --suite-times DIR [DIR ...]
 
-times B5 and B6 alone in each checkout DIR in turn (for two versions on
-one card: parent, change, change, parent).
+time one family of kernels alone in each checkout DIR in turn (for two
+versions on one card: parent, change, change, parent), each first held
+to its plain version, with the SM clock before and after, and the ptxas
+lines and SASS instruction counts (cuobjdump) of the family's kernels as
+built: B5 and B6 on phase 9's request 1; B3 (config 2, 10x719x929, a p
+field) and B4 (the suite entry's request 1, 32x719x929) on random and
+smooth fields, masked and all-defined, bit for bit, the launch alone and
+through the wrapper.  Each DIR needs only its ``mi_fieldcalc_tpu_torch/``.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
 line is a JSON object with the kernels' records, the last
@@ -222,6 +231,38 @@ def make_suite_inputs(nlev, ny, nx, seed, undef_frac, plant=True):
         if undef_frac:
             p[0, ny // 2, nx // 2] = np.float32(1e35)
             ps[ny // 2, nx // 2] = np.float32(1e35)
+    alevel = np.linspace(30.0, 0.0, nlev).astype(np.float32)
+    blevel = np.linspace(0.02, 1.0, nlev).astype(np.float32)
+    return tk, q, rh, p, ps, alevel, blevel
+
+
+def make_smooth_suite_inputs(nlev, ny, nx, seed, undef_frac):
+    """:func:`make_suite_inputs`'s ranges as model fields have them:
+    slowly varying along x and y (a few waves across the grid, ~0.1 K from
+    one x point to the next), so the 32 points of a warp fall into one or
+    two saturation-table bins; ``undef_frac`` scattered undefined points."""
+    rng = np.random.default_rng(seed)
+    shape = (nlev, ny, nx)
+    k = np.arange(nlev, dtype=np.float64)[:, None, None] / max(nlev - 1, 1)
+    y = np.arange(ny, dtype=np.float64)[None, :, None] / ny
+    x = np.arange(nx, dtype=np.float64)[None, None, :] / nx
+    ph = rng.uniform(0.0, 2.0 * np.pi, 4)
+    wave = [np.sin(2.0 * np.pi * (3.0 * x + 2.0 * y) + ph[i] + 3.0 * k)
+            * np.cos(np.pi * (2.0 * y - x) + ph[i]) for i in range(3)]
+
+    def field(w, lo, hi):
+        a = (lo + (hi - lo) * (0.5 + 0.5 * w)).astype(np.float32)
+        if undef_frac:
+            a[rng.random(shape) < undef_frac] = np.float32(1e35)
+        return a
+
+    tk = field(wave[0], 250.0, 300.0)
+    q = field(wave[1], 1e-4, 1e-2)
+    rh = field(wave[2], 5.0, 95.0)
+    swell = np.sin(2.0 * np.pi * (x + y) + ph[3])
+    p = np.clip(300.0 + 700.0 * k + 20.0 * swell, 300.0, 1000.0).astype(
+        np.float32)
+    ps = (990.0 + 40.0 * swell[0]).astype(np.float32)
     alevel = np.linspace(30.0, 0.0, nlev).astype(np.float32)
     blevel = np.linspace(0.02, 1.0, nlev).astype(np.float32)
     return tk, q, rh, p, ps, alevel, blevel
@@ -632,6 +673,9 @@ def phase_new_kernels(dev) -> dict:
                 worst[name] = max(worst[name], compare_fields(
                     got.as_fields(), ref.as_fields(), label,
                     defined_only=True))
+                if worst[name] != 0.0:
+                    raise AssertionError(f"{label}: not bit for bit "
+                                         f"(max abs err {worst[name]!r})")
     log(f"alevel / hlevel suite == plain, {len(reqs)} modes in one request, "
         f"at {len(KERNEL_SHAPES)} shapes x masked/all-defined: max abs err "
         f"{worst['alevel_suite']!r} / {worst['hlevel_suite']!r}")
@@ -754,6 +798,115 @@ def check_suite_physics(out: dict, nlev: int, ny: int, nx: int) -> None:
             raise AssertionError(f"{name}: outside physical bounds")
 
 
+def config2_reqs(fs) -> tuple:
+    """BASELINE config 2's request list, validated by ``fs``
+    (ops/fused_suite.py)."""
+    return fs._build_reqs("chip_smoke", *(CONFIG2.get(k, ()) for k in (
+        "temps", "hums_q", "hums_rh", "thes", "ducts_q", "ducts_rh")))
+
+
+def suite_case(dev, name: str, shape, kind: str, all_defined: bool):
+    """B3 (``name`` "alevel", with a pressure field) or B4 ("hlevel") on
+    config 2's request set: ``(launch, wrapper, plain)``, the kernel's
+    launch through its wrapper's ``_launch`` (no argument checks on the
+    host), the public stacked wrapper (the measure of the kernels line) and
+    the plain version, all on the same CUDA tensors.  ``kind`` "random"
+    takes phase 8's inputs (:func:`make_suite_inputs`: B3's seed 1, B4's
+    request 1, 2% undefined; all-defined: seeds 2 / 12, none undefined),
+    "smooth" :func:`make_smooth_suite_inputs` with the same seeds."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
+    reqs = config2_reqs(fs)
+    seed = (1 if name == "alevel" else 11) + int(all_defined)
+    frac = 0.0 if all_defined else 0.02
+    if kind == "random":
+        raw = make_suite_inputs(*shape, seed, frac, plant=False)
+    else:
+        raw = make_smooth_suite_inputs(*shape, seed, frac)
+    t, q, rh, p, ps = (from_sentinel(x, device=dev) for x in raw[:5])
+    if name == "alevel":
+        return (lambda: fs._launch(False, t, q, rh, p, None, None, reqs,
+                                   all_defined),
+                lambda: fs.alevel_suite_stacked(t, q, rh, p, reqs,
+                                                all_defined),
+                lambda: fs.alevel_suite_plain(t, q, rh, p, reqs,
+                                              all_defined))
+    a, b = (torch.as_tensor(x, device=dev) for x in raw[5:])
+    return (lambda: fs._launch(True, t, q, rh, ps, a, b, reqs, all_defined),
+            lambda: fs.hlevel_suite_stacked(t, q, rh, ps, a, b, reqs,
+                                            all_defined),
+            lambda: fs.hlevel_suite_plain(t, q, rh, ps, a, b, reqs,
+                                          all_defined))
+
+
+def compare_suite_exact(got, ref, label: str) -> bool:
+    """Kernel vs plain suite outputs (``SuiteStacked``): mask planes equal,
+    values equal bit for bit on the defined points (NaN where NaN); raises
+    otherwise.  Returns whether the values are equal at every point too."""
+    import torch
+
+    def same(a, b):
+        return (a.view(torch.int32) == b.view(torch.int32)) | (
+            torch.isnan(a) & torch.isnan(b))
+
+    if got.mask_map != ref.mask_map or not torch.equal(got.masks,
+                                                       ref.masks):
+        raise AssertionError(f"{label}: mask planes differ")
+    for k, (g, r) in enumerate(zip(got.as_fields(), ref.as_fields())):
+        bad = ~same(g.values, r.values) & r.mask
+        if bool(bad.any()):
+            raise AssertionError(f"{label} output {k}: {int(bad.sum())} "
+                                 f"defined values differ")
+    return bool(same(got.values, ref.values).all())
+
+
+def time_device_ms(fn, reps: int) -> list:
+    """Device times of ``fn`` in ms (CUDA events), each run queued behind
+    a ~1 ms busy wait on the stream, so that the host's time to enqueue it
+    falls outside the events: the kernel's own time."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def suite_time_cases(dev, routes=(False, True)) -> dict:
+    """B3 at config 2's own 10x719x929 with a p field and B4 on the suite
+    entry's request-1 inputs at 32x719x929, random and smooth fields, in
+    each route of ``routes`` (all-defined or not): each held to its plain
+    version (:func:`compare_suite_exact`), then 20 launches to warm up and
+    the median of 30 device times of the launch alone
+    (:func:`time_device_ms`, ``ms``) and of 30 through the stacked wrapper
+    (:func:`time_ms`, ``wrapper_ms``)."""
+    out = {}
+    for name, shape in (("alevel", A_SUITE_SHAPE), ("hlevel", SUITE_SHAPE)):
+        for kind in ("random", "smooth"):
+            for ad in routes:
+                label = f"{name} {kind} {'all_defined' if ad else 'masked'}"
+                launch, wrapper, plain = suite_case(dev, name, shape, kind, ad)
+                every = compare_suite_exact(launch(), plain(), label)
+                for _ in range(20):
+                    launch()
+                ms = time_device_ms(launch, 30)
+                wms = time_ms(wrapper, 30)
+                out[label] = {"ms": statistics.median(ms), "ms_all": ms,
+                              "wrapper_ms": statistics.median(wms),
+                              "wrapper_ms_all": wms, "equal": True,
+                              "equal_every_point": every}
+                del launch, wrapper, plain
+    return out
+
+
 def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
                  request_reps=3) -> dict:
     """The suite entry (B4) and the a-level suite (B3) at full size."""
@@ -763,8 +916,7 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
     from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
 
     nlev, ny, nx = SUITE_SHAPE
-    reqs = fs._build_reqs("chip_smoke", *(CONFIG2.get(k, ()) for k in (
-        "temps", "hums_q", "hums_rh", "thes", "ducts_q", "ducts_rh")))
+    reqs = config2_reqs(fs)
     requests = [("undef lanes live", 11, 0.02, False),
                 ("fully defined", 12, 0.0, True),
                 ("undef lanes live", 13, 0.005, False)]
@@ -833,6 +985,9 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
     del a_out
     log(f"alevel_suite_fused at {an}x{ay}x{ax}: 1 launch, == plain "
         f"(max abs err {a_err!r})")
+    if h_err != 0.0 or a_err != 0.0:
+        raise AssertionError(f"suite kernels at full size not bit for bit: "
+                             f"max abs err {h_err!r} / {a_err!r}")
 
     # times: B3 on these tensors, B4 on request 1's
     k3 = time_ms(lambda: fs.alevel_suite_stacked(t, q, rh, p, reqs), reps)
@@ -845,6 +1000,8 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
     k4 = time_ms(lambda: fs.hlevel_suite_stacked(*staged, reqs, ad), reps)
     p4 = time_ms(lambda: fs.hlevel_suite_plain(*staged, reqs, ad), reps)
     del staged
+    # the launch alone, on these inputs and on smooth fields
+    alone = suite_time_cases(dev, routes=(False,))
     nout = len(reqs)
     b3 = suite_bytes(4, nout, nout, an, ay, ax, False, False)
     b4 = suite_bytes(3, nout, nout, nlev, ny, nx, True, False)
@@ -852,12 +1009,20 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
            "alevel_plain_ms": statistics.median(p3),
            "hlevel_ms": statistics.median(k4),
            "hlevel_plain_ms": statistics.median(p4)}
+    for name in ("alevel", "hlevel"):
+        med[f"{name}_launch_ms"] = alone[f"{name} random masked"]["ms"]
+        med[f"{name}_smooth_launch_ms"] = alone[f"{name} smooth masked"]["ms"]
     gbps = {"alevel": b3 / med["alevel_ms"] / 1e6,
             "hlevel": b4 / med["hlevel_ms"] / 1e6}
     log(f"[{smi}] alevel suite {an}x{ay}x{ax} masked: kernel "
-        f"{med['alevel_ms']:.4f} ms, plain {med['alevel_plain_ms']:.3f} ms, "
+        f"{med['alevel_ms']:.4f} ms (the launch alone "
+        f"{med['alevel_launch_ms']:.4f} ms, on smooth fields "
+        f"{med['alevel_smooth_launch_ms']:.4f} ms), plain "
+        f"{med['alevel_plain_ms']:.3f} ms, "
         f"{gbps['alevel']:.1f} GB/s ({b3 / 1e9:.3f} GB); hlevel suite "
-        f"{nlev}x{ny}x{nx} masked: kernel {med['hlevel_ms']:.4f} ms, plain "
+        f"{nlev}x{ny}x{nx} masked: kernel {med['hlevel_ms']:.4f} ms (the "
+        f"launch alone {med['hlevel_launch_ms']:.4f} ms, on smooth fields "
+        f"{med['hlevel_smooth_launch_ms']:.4f} ms), plain "
         f"{med['hlevel_plain_ms']:.3f} ms, {gbps['hlevel']:.1f} GB/s "
         f"({b4 / 1e9:.3f} GB); device copy {copy_gbps:.1f} GB/s")
 
@@ -891,7 +1056,8 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
     return {"hlevel_launches": h_launches, "alevel_launches": a_launches,
             "hlevel_max_abs_err": h_err, "alevel_max_abs_err": a_err,
             "times": {**med, "alevel_ms_all": k3, "alevel_plain_ms_all": p3,
-                      "hlevel_ms_all": k4, "hlevel_plain_ms_all": p4},
+                      "hlevel_ms_all": k4, "hlevel_plain_ms_all": p4,
+                      "alone": alone},
             "gbps": gbps, "bytes": {"alevel": b3, "hlevel": b4},
             "request_ms": split}
 
@@ -1495,74 +1661,168 @@ def phase_icing_times(dev, smi: str, copy_gbps: float, f32_rate: float,
     return res
 
 
-#: run in a checkout by --icing-times: B5 and B6 on phase 9's request 1,
-#: held to their plain versions, then timed after 20 launches that bring
-#: the card to its clocks (CUDA events, median of 30)
-_ICING_TIMES = r"""
-import json, math, statistics, sys
+def icing_time_cases(dev) -> dict:
+    """B5 and B6 on phase 9's request 1, held to their plain versions
+    (values equal, NaN where NaN), then timed after 20 launches that bring
+    the card to its clocks (CUDA events, median of 30)."""
+    import math
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
+    vs, alpha, zmin, zmax = ICING_SCAL
+    vsca = float(vs * math.cos(alpha))
+    decay = _mincog_decay(zmin, _number(zmin, zmax))
+    _, args, _ = icing_requests()[0]
+    fields = staging._icing_upload_step(
+        staging.HostStager(11).decode(*args), dev)
+    g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
+    g6, p6, sh6 = F._modstall_prologue(*fields)
+    runs = {
+        "mincog": (lambda: F._launch(F.vessel_icing_mincog_fused, F._PLANES,
+                                     p5, (g5, sh5, sk5), decay, vsca, 1),
+                   lambda: F._mincog_plain(g5, p5, sh5, sk5, vsca, 1, decay,
+                                           None)),
+        "modstall": (lambda: F._launch(F.vessel_icing_modstall_fused,
+                                       F._MS_PLANES, p6, (g6, sh6), decay,
+                                       vsca, None),
+                     lambda: F._modstall_plain(g6, p6, sh6, vsca, decay,
+                                               None))}
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        got, ref = kernel(), plain()
+        same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+        for _ in range(20):
+            kernel()
+        ms = time_ms(kernel, 30)
+        out[name] = {"ms": statistics.median(ms), "ms_all": ms,
+                     "equal": bool(same.all())}
+    return out
+
+
+#: --icing-times / --suite-times: the cases timed in each checkout, and
+#: the part of the kernels' names whose ptxas lines and SASS are logged
+TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
+              "suite": (suite_time_cases, "suite_kernel")}
+
+#: run in a checkout by :func:`time_checkouts` (argv[1]: this script,
+#: whose inputs, cases and timers it uses; argv[2]: the family; the
+#: package is the checkout's)
+_TIMES = r"""
+import importlib.util, json, sys
 import torch
 sys.path.insert(0, ".")
-import chip_smoke as c
-from mi_fieldcalc_tpu_torch import staging
-from mi_fieldcalc_tpu_torch.ops import icing_fused as F
-from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
-dev = torch.device("cuda", 0)
-vs, alpha, zmin, zmax = c.ICING_SCAL
-vsca = float(vs * math.cos(alpha))
-decay = _mincog_decay(zmin, _number(zmin, zmax))
-_, args, _ = c.icing_requests()[0]
-fields = staging._icing_upload_step(staging.HostStager(11).decode(*args), dev)
-g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
-g6, p6, sh6 = F._modstall_prologue(*fields)
-runs = {
-    "mincog": (lambda: F._launch(F.vessel_icing_mincog_fused, F._PLANES, p5,
-                                 (g5, sh5, sk5), decay, vsca, 1),
-               lambda: F._mincog_plain(g5, p5, sh5, sk5, vsca, 1, decay,
-                                       None)),
-    "modstall": (lambda: F._launch(F.vessel_icing_modstall_fused,
-                                   F._MS_PLANES, p6, (g6, sh6), decay, vsca,
-                                   None),
-                 lambda: F._modstall_plain(g6, p6, sh6, vsca, decay, None))}
-out = {}
-for name, (kernel, plain) in runs.items():
-    got, ref = kernel(), plain()
-    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
-    for _ in range(20):
-        kernel()
-    ms = c.time_ms(kernel, 30)
-    out[name] = {"ms": statistics.median(ms), "ms_all": ms,
-                 "equal": bool(same.all())}
-print("icing-times " + json.dumps(out))
+spec = importlib.util.spec_from_file_location("chip_smoke_runner",
+                                              sys.argv[1])
+c = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(c)
+from mi_fieldcalc_tpu_torch import _build
+out = c.TIME_CASES[sys.argv[2]][0](torch.device("cuda", 0))
+print("times " + json.dumps({"library": str(_build.build()), **out}))
 """
 
 
-def icing_times(dirs) -> int:
-    """B5 and B6 alone in each checkout of ``dirs`` in turn, one process
-    (and one build) each; fails if a kernel differs from its plain
-    version."""
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {function: [instruction, ...]}, the
+    predicate guards dropped."""
+    import re
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            ins = m.group(1).strip()
+            if ins.startswith("@"):
+                ins = ins.split(None, 1)[1]
+            cur.append(ins)
+    return funcs
+
+
+def sass_summary(instrs: list, per_thread: int = 1) -> dict:
+    """Counts of one kernel's SASS: all instructions but NOPs, its main
+    body (up to the last EXIT before the first subroutine's RET; the IEEE
+    division's slow path and other called routines follow it), per point
+    (the main body over the points a thread takes), and some opcodes."""
+    ops = [i.split()[0] for i in instrs if not i.startswith("NOP")]
+    rets = [k for k, o in enumerate(ops) if o.startswith("RET")]
+    head = ops[:rets[0]] if rets else ops
+    exits = [k for k, o in enumerate(head) if o.startswith("EXIT")]
+    main = head[:exits[-1] + 1] if exits else head
+    by = {}
+    for o in main:
+        base = o.split(".")[0]
+        by[base] = by.get(base, 0) + 1
+    keys = ("LDC", "LDS", "LDG", "STG", "ST", "MUFU", "CALL", "FSETP", "ISETP",
+            "BRA", "IMAD", "FMUL", "FADD", "SEL", "FSEL")
+    return {"total": len(ops), "main": len(main),
+            "per_point": len(main) / per_thread,
+            "opcodes": {k: by.get(k, 0) for k in keys}}
+
+
+def cuobjdump_sass(path) -> dict:
+    """:func:`sass_functions` of the cubin or library at ``path``, dumped
+    by the cuobjdump beside nvcc."""
+    from mi_fieldcalc_tpu_torch._build import find_nvcc
+    nvcc = find_nvcc()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.is_file():
+        raise OSError("cuobjdump not found beside nvcc")
+    return sass_functions(subprocess.run(
+        [str(tool), "-sass", str(path)], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
+
+
+def time_checkouts(family: str, dirs) -> int:
+    """``TIME_CASES[family]`` alone in each checkout of ``dirs`` in turn,
+    one process (and one build) each, with the SM clock before and after,
+    then the ptxas lines and SASS counts of the family's kernels as built;
+    fails if a kernel differs from its plain version."""
     import torch
     if not dirs or not torch.cuda.is_available():
-        print("chip_smoke --icing-times: needs checkouts and a CUDA device",
-              file=sys.stderr)
+        print(f"chip_smoke --{family}-times: needs checkouts and a CUDA "
+              f"device", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(ROOT))
+    pattern = TIME_CASES[family][1]
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True, timeout=60).stdout.strip())
     for d in dirs:
-        proc = subprocess.run([sys.executable, "-c", _ICING_TIMES], cwd=d,
-                              capture_output=True, text=True, timeout=900)
+        clock = sm_clock()
+        proc = subprocess.run(
+            [sys.executable, "-c", _TIMES, str(Path(__file__).resolve()),
+             family], cwd=d, capture_output=True, text=True, timeout=900)
         lines = [x for x in proc.stdout.splitlines()
-                 if x.startswith("icing-times ")]
+                 if x.startswith("times ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-2000:] + proc.stderr[-4000:], file=sys.stderr)
             return 1
         res = json.loads(lines[-1].split(" ", 1)[1])
-        log(f"{d}: " + " ".join(f"{k} {v['ms']:.4f} ms" for k, v in
-                                res.items()) + " " + json.dumps(res))
+        lib = res.pop("library")
+        log(f"{d}: SM clock {clock:.0f} / {sm_clock():.0f} MHz before / after; "
+            + "; ".join(f"{k} {v['ms']:.4f} ms" for k, v in res.items()))
+        log(f"{d}: {family}-times " + json.dumps(res))
         if not all(v["equal"] for v in res.values()):
             print(f"{d}: a kernel differs from its plain version",
                   file=sys.stderr)
             return 1
+        report = Path(lib + ".log")
+        ours = False
+        for line in (report.read_text().splitlines() if report.is_file()
+                     else ()):
+            if "entry function" in line or "Function properties" in line:
+                ours = pattern in line
+            if ours:
+                log(f"{d}:   ptxas: {line.strip()}")
+        try:
+            sass = {name: sass_summary(instrs) for name, instrs in
+                    cuobjdump_sass(lib).items() if pattern in name}
+        except (OSError, subprocess.SubprocessError) as e:
+            sass = {"error": repr(e)}
+        log(f"{d}: sass " + json.dumps(sass))
     return 0
 
 
@@ -1673,6 +1933,7 @@ def main() -> int:
         "max_abs_err": max(suites["alevel_max_abs_err"],
                            new_worst["alevel_suite"]),
         "ms": suites["times"]["alevel_ms"],
+        "launch_ms": suites["times"]["alevel_launch_ms"],
         "plain_ms": suites["times"]["alevel_plain_ms"],
         **bounds["alevel_suite"],
     }, {
@@ -1684,6 +1945,7 @@ def main() -> int:
         "max_abs_err": max(suites["hlevel_max_abs_err"],
                            new_worst["hlevel_suite"]),
         "ms": suites["times"]["hlevel_ms"],
+        "launch_ms": suites["times"]["hlevel_launch_ms"],
         "plain_ms": suites["times"]["hlevel_plain_ms"],
         **bounds["hlevel_suite"],
     }] + [{
@@ -1709,6 +1971,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--icing-times"]:
-        sys.exit(icing_times(sys.argv[2:]))
+    for family in TIME_CASES:
+        if sys.argv[1:2] == [f"--{family}-times"]:
+            sys.exit(time_checkouts(family, sys.argv[2:]))
     sys.exit(main())

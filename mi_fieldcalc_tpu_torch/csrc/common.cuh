@@ -228,4 +228,56 @@ static __device__ __forceinline__ float ewt_inverse(float et, int l) {
   return -100.0f + (static_cast<float>(ll) + rr) * 5.0f;
 }
 
+// ---- the table in shared memory (the level suites) ----------------------
+// A copy of c_ewt padded with NaN to kEwtPad entries: per-thread lookups at
+// divergent indices go to shared memory (at most 2-way bank conflicts)
+// instead of the constant cache, which serves one address per cycle.
+
+static constexpr int kEwtPad = 64;
+
+// Fills tab[kEwtPad]: a block-stride loop; the caller then synchronises.
+static __device__ __forceinline__ void ewt_to_shared(float* tab) {
+  for (int k = threadIdx.x; k < kEwtPad; k += blockDim.x) {
+    tab[k] = k < kNEwt ? c_ewt[k] : __int_as_float(0x7fc00000);
+  }
+}
+
+// The count of entries <= et (ewt_inverse's), by a 6-step search.  The
+// table is strictly increasing and its NaN padding compares false, so
+// "et >= tab[k]" holds on a prefix of the 64 entries and the steps 32 .. 1
+// add up its length: NaN counts 0, +inf counts 41.
+static __device__ __forceinline__ int ewt_count(const float* tab, float et) {
+  int pos = 0;
+#pragma unroll
+  for (int step = kEwtPad / 2; step >= 1; step >>= 1) {
+    pos = et >= tab[pos + step - 1] ? pos + step : pos;
+  }
+  return pos;
+}
+
+// esat and ewt_inverse above, reading the table from tab.
+static __device__ __forceinline__ float esat_tab(const float* tab, float tk,
+                                                 bool* ok, int* l_out) {
+  const float x = (tk - kT0 + 100.0f) * kEwtScale;
+  float lf = truncf(x);
+  lf = lf != lf ? 0.0f : fminf(fmaxf(lf, -1.0f), 40.0f);
+  const int l = static_cast<int>(lf);
+  const int ls = min(max(l, 0), kNEwt - 2);
+  const float e0 = tab[ls];
+  const float e1 = tab[ls + 1];
+  *ok = l >= 0 && l < kNEwt - 1;
+  *l_out = l;
+  return e0 + (e1 - e0) * (x - static_cast<float>(ls));
+}
+
+static __device__ __forceinline__ float ewt_inverse_tab(const float* tab,
+                                                        float et, int l) {
+  const int cnt = ewt_count(tab, et);
+  const int ll = min(max(cnt - 1, 0), min(max(l, 0), kNEwt - 2));
+  const float e0 = tab[ll];
+  const float e1 = tab[ll + 1];
+  const float rr = (et - e0) / (e1 - e0);
+  return -100.0f + (static_cast<float>(ll) + rr) * 5.0f;
+}
+
 #endif  // MF_COMMON_CUH_

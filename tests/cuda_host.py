@@ -1,0 +1,122 @@
+"""Compile a CUDA kernel source of the port for the host CPU.
+
+A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
+C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
+``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
+``atomicAdd`` is a plain add, ``__int_as_float`` is a ``memcpy``, and each
+``<<<grid, block>>>`` launch becomes a host loop over ``blockIdx`` (y, then
+x) that runs each block as one thread (``blockDim.x = 1``).  That is right
+for kernels whose every phase is a block-stride loop: one thread runs all
+of its block's work in turn.  With ``-ffp-contract=off`` every float
+operation rounds on its own, as the card's ``-fmad=false`` build does, so
+the kernels' arithmetic can be held bit for bit to the plain versions where
+no card is.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+
+CSRC = Path(__file__).resolve().parent.parent / "mi_fieldcalc_tpu_torch" \
+    / "csrc"
+
+SHIM = r"""
+#pragma once
+#include <math.h>
+#include <string.h>
+#include <stdint.h>
+#include <algorithm>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __constant__
+#define __launch_bounds__(x)
+#define __shared__ static
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+static const int cudaErrorInvalidValue = 1;
+static inline int cudaGetLastError() { return 0; }
+static inline void __syncthreads() {}
+template <class T> static inline T atomicAdd(T* p, T v) {
+  const T old = *p;
+  *p = old + v;
+  return old;
+}
+struct cudaFuncAttributes {
+  int numRegs;
+  size_t sharedSizeBytes, localSizeBytes;
+};
+template <class K>
+static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+  *a = cudaFuncAttributes();
+  return 0;
+}
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static dim3 blockIdx, threadIdx, blockDim;
+static inline float __int_as_float(int i) {
+  float f;
+  memcpy(&f, &i, 4);
+  return f;
+}
+static inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, 4);
+  return i;
+}
+template <class T> static inline T __ldg(const T* p) { return *p; }
+using std::min;
+using std::max;
+template <class K, class P>
+void host_launch(K kernel, dim3 grid, unsigned, const P& params) {
+  blockDim = dim3(1);
+  threadIdx = dim3(0);
+  for (unsigned y = 0; y < grid.y; ++y) {
+    for (unsigned b = 0; b < grid.x; ++b) {
+      blockIdx = dim3(b, y);
+      kernel(params);
+    }
+  }
+}
+"""
+
+#: kernel<<<grid, block, ...>>>(params);  (the kernel name may carry
+#: template arguments)
+_LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<\s*([^,>]+),\s*([^,>]+)"
+                     r"(?:,.*?)?>>>\(\s*(\w+)\s*\);")
+
+
+def host_library(tmp_path_factory, source: str, launches: int,
+                 extra_sources=()) -> ctypes.CDLL:
+    """``csrc/<source>`` compiled for the host, its ``launches`` kernel
+    launches turned into host loops, with ``extra_sources`` (name, C++
+    text) pairs compiled beside it in one shared library.  Skips without
+    g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the host")
+    stem = Path(source).stem
+    d = tmp_path_factory.mktemp(stem + "_host")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    shutil.copy(CSRC / "common.cuh", d / "common.cuh")
+    src, n = _LAUNCH.subn(r"host_launch(\1, \2, \3, \4);",
+                          (CSRC / source).read_text())
+    assert n == launches, n
+    files = [d / f"{stem}_host.cpp"]
+    files[0].write_text(src)
+    for name, text in extra_sources:
+        files.append(d / name)
+        files[-1].write_text(text)
+    so = d / f"lib{stem}_host.so"
+    proc = subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-fno-fast-math",
+         "-fPIC", "-shared", "-I", str(d), *map(str, files), "-o", str(so)],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(so))

@@ -2,16 +2,13 @@
 versions, bit for bit.
 
 ``csrc/vessel_icing.cu`` (with ``csrc/common.cuh``) is compiled by g++ as
-plain C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are
-empty, ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
-``atomicAdd`` is a plain add, ``__int_as_float`` is a ``memcpy``, and each
-``<<<grid, block>>>`` launch becomes a host loop over blockIdx that runs
-each block as one thread (``blockDim.x = 1``): the kernels' phases are
-block-stride loops over lists with shared counters, so one thread runs
-every phase of its block in turn.  With
-``-ffp-contract=off`` every float operation rounds on its own, as the
-card's ``-fmad=false`` build does, so the per-point arithmetic of B5 and B6
-can be held to the plain versions here, where no card is.  PyTorch's CPU
+plain C++ through the stand-in ``cuda_runtime.h`` of ``cuda_host.py``,
+which runs each block as one thread: the kernels' phases are block-stride
+loops over lists with shared counters, so one thread runs every phase of
+its block in turn.  With ``-ffp-contract=off`` every float operation rounds
+on its own, as the card's ``-fmad=false`` build does, so the per-point
+arithmetic of B5 and B6 can be held to the plain versions here, where no
+card is.  PyTorch's CPU
 ``sqrt`` is not correctly rounded (the card's is, and so is the host
 ``sqrtf``), so the plain versions run with a correctly rounded one.
 The card itself checks the same equality (``test_torch_icing.py``'s
@@ -20,110 +17,26 @@ The card itself checks the same equality (``test_torch_icing.py``'s
 
 import ctypes
 import math
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import icing_corner_cases as corners
+from cuda_host import host_library
 from mi_fieldcalc_tpu_torch.field import from_sentinel
 from mi_fieldcalc_tpu_torch.ops import icing_fused as F
 from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
 
 torch.set_num_threads(1)
 
-CSRC = Path(__file__).resolve().parent.parent / "mi_fieldcalc_tpu_torch" \
-    / "csrc"
 SCAL = (5.0, 0.52, 2.0, 11.0)
 SCAL_VS0 = (0.0, 0.0, 1.0, 4.0)
-
-_SHIM = r"""
-#pragma once
-#include <math.h>
-#include <string.h>
-#include <stdint.h>
-#include <algorithm>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __constant__
-#define __launch_bounds__(x)
-#define __shared__ static
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-static const int cudaErrorInvalidValue = 1;
-static inline int cudaGetLastError() { return 0; }
-static inline void __syncthreads() {}
-template <class T> static inline T atomicAdd(T* p, T v) {
-  const T old = *p;
-  *p = old + v;
-  return old;
-}
-struct cudaFuncAttributes {
-  int numRegs;
-  size_t sharedSizeBytes, localSizeBytes;
-};
-template <class K>
-static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
-  *a = cudaFuncAttributes();
-  return 0;
-}
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-static dim3 blockIdx, threadIdx, blockDim;
-static inline float __int_as_float(int i) {
-  float f;
-  memcpy(&f, &i, 4);
-  return f;
-}
-static inline int __float_as_int(float f) {
-  int i;
-  memcpy(&i, &f, 4);
-  return i;
-}
-template <class T> static inline T __ldg(const T* p) { return *p; }
-using std::min;
-using std::max;
-template <class K, class P>
-void host_launch(K kernel, dim3 grid, unsigned, const P& params) {
-  blockDim = dim3(1);
-  threadIdx = dim3(0);
-  for (unsigned b = 0; b < grid.x; ++b) {
-    blockIdx = dim3(b);
-    kernel(params);
-  }
-}
-"""
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel source for the host")
-    d = tmp_path_factory.mktemp("vessel_icing_host")
-    (d / "cuda_runtime.h").write_text(_SHIM)
-    shutil.copy(CSRC / "common.cuh", d / "common.cuh")
-    # kernel<<<grid, block, ...>>>(params);  ->  a host loop over blocks
-    src, n = re.subn(
-        r"(\w+)<<<\s*([^,>]+),\s*([^,>]+)(?:,.*?)?>>>\(\s*(\w+)\s*\);",
-        r"host_launch(\1, \2, \3, \4);",
-        (CSRC / "vessel_icing.cu").read_text())
-    assert n == 2
-    (d / "vessel_icing_host.cpp").write_text(src)
-    so = d / "libvessel_icing_host.so"
-    proc = subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-fno-fast-math",
-         "-fPIC", "-shared", "-I", str(d), str(d / "vessel_icing_host.cpp"),
-         "-o", str(so)], capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(so))
+    lib = host_library(tmp_path_factory, "vessel_icing.cu", 2)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     pp = ctypes.POINTER(ctypes.c_void_p)
     lib.mf_vessel_icing_mincog.argtypes = [pp] + [p] * 4 + [i, f, i, p, i,
