@@ -52,14 +52,34 @@ Phases (any failure raises and exits non-zero):
    their registers and shared memory, the warp-efficiency model's
    predicted speed-up beside the measured one over the per-point kernels,
    and one request split into decode, H2D, prologues, kernels, D2H and
-   encode.
+   encode;
+10. measurement probes (``mi_fieldcalc_tpu_torch/tools/``, kernels in
+   ``csrc/probes.cu``): P1 (the structure-matched copy of B1) at phase 3's
+   shapes and 32x719x929, P2 (x + 1 into nbuf outputs) at a ragged shape
+   and every case of its sweep, P3 (halo windows) at 32x256, a ragged and
+   a single-row case and B1's shape, P4 (the solver constructs) at 64x256
+   and 719x929, each equal to its plain version bit for bit; then, with
+   the probes' launch counts zeroed before and read after (each must be
+   > 0): B1 against P1 in turns on phase 5's inputs, masked and
+   all-defined, B1's time over P1's and both against the bytes bound at
+   the published 3.35 TB/s; P2's sweep in GB/s beside ``torch.add(x, 1)``;
+   P3 beside P2's one buffer; P4 against its operation count; and one
+   masked ``run_derived_fields_np`` request under
+   ``utils.profiling.trace``: the device's busy share of the request and
+   B1 found in the trace by name (or, where the trace holds no device
+   events, the share from CUDA events around H2D, kernel and D2H, and a
+   line that says so).
 
-Every kernel's record carries its bound: the larger of the bytes it must
-move over this run's device-copy rate and the float32 operations these
-inputs need over the card's un-fused float32 issue rate, SMs x 128 x the
-maximum SM clock, read from the card in this run (the kernels are built
--fmad=false, so an add and a multiply never share an instruction; the
-data sheet's 67 TFLOP/s counts a fused multiply-add as two).
+Every kernel's record carries its bound (``bound_ms``): the larger of the
+bytes it must move over the card's published memory rate and the float32
+operations these inputs need over its published float32 rate (3.35 TB/s
+and 67 TFLOP/s for the H100 SXM; ``utils.profiling``).  ``copy_bound_ms``
+keeps the bound of the records before phase 10: the bytes over this run's
+device-copy rate and the operations over the card's un-fused float32 issue
+rate, SMs x 128 x the maximum SM clock, read from the card in this run (the
+kernels are built -fmad=false, so an add and a multiply never share an
+instruction; the data sheet's 67 TFLOP/s counts a fused multiply-add as
+two).
 
     python3 chip_smoke.py --icing-times DIR [DIR ...]
     python3 chip_smoke.py --suite-times DIR [DIR ...]
@@ -108,6 +128,8 @@ OPS_B1_POINT = 150          # per point and level, all 12 outputs
 OPS_B2_PAIR = 2             # per column, target and level pair (p_k1)
 OPS_B2_TARGET = 80          # per column and target: two logs, the weights
 OPS_SUITE_OUTPUT = 20       # per output point of B3 / B4
+OPS_COPY_POINT = 30         # per point of the copy probe P1: its 18 adds
+                            # into s and the 12 of s + k
 NAMES = ("p", "th", "rh", "td", "thetae", "ducting", "wspeed", "vort", "div",
          "tadv", "gradt", "tfp")
 #: phase 6's shapes: phase 3's and a 137-level column
@@ -1700,6 +1722,284 @@ def icing_time_cases(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 10
+#: P1's shapes: phase 3's and the headline; P3's ragged and single-row
+#: cases beside the tool's 32x256 and B1's shape
+PROBE_WINDOW_CASES = (((32, 256), 8), ((2, 37, 300), 8), ((1, 1, 5), 32))
+
+
+def _exact(got, ref, label: str) -> float:
+    """The probe equals its plain version bit for bit (raises otherwise);
+    returns the largest absolute difference of the float outputs, 0.0."""
+    import torch
+    from mi_fieldcalc_tpu_torch.tools import _lab
+    _lab.assert_same(got, ref, label)
+    got = (got,) if isinstance(got, torch.Tensor) else got
+    ref = (ref,) if isinstance(ref, torch.Tensor) else ref
+    return max(float((g - r).abs().max()) for g, r in zip(got, ref)
+               if g.dtype == torch.float32)
+
+
+def phase_probe_kernels(dev) -> dict:
+    """Each probe kernel against its plain version on the card, bit for
+    bit: P1 at phase 3's shapes and the headline 32x719x929 (there also
+    capped at 2 blocks an SM), masked and all-defined; P2 at a ragged shape and every case of its sweep at
+    32x719x929; P3 at PROBE_WINDOW_CASES and B1's shape with each window
+    height; P4 at the tool's 64x256 and at 719x929.  Returns each probe's
+    largest absolute difference (0.0)."""
+    from mi_fieldcalc_tpu_torch.tools import (
+        bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel)
+    import torch
+    err = {"copy": 0.0, "add1": 0.0, "window": 0.0, "solver": 0.0}
+    for shape in SHAPES + ((NLEV, NY, NX),):
+        for ad in (False, True):
+            args = bench_copy.probe_inputs(*shape, seed=sum(shape),
+                                           all_defined=ad, device=dev)
+            sel = args[:5] + args[7:9]
+            ref = bench_copy.copy_probe_plain(*sel, ad)
+            for cap in ((None, 2) if shape == (NLEV, NY, NX) else (None,)):
+                err["copy"] = max(err["copy"], _exact(
+                    bench_copy.copy_probe(*sel, ad, cap), ref,
+                    f"copy {shape} {ad} cap {cap}"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((3, 37, 41), generator=gen, device=dev)
+    cases = [(x, 8, 3, 256)] + [(None, *c) for c in perf_lab_dma.cases(NY)]
+    x = torch.randn((NLEV, NY, NX), generator=gen, device=dev)
+    for xc, ty, nbuf, threads in cases:
+        xc = x if xc is None else xc
+        err["add1"] = max(err["add1"], _exact(
+            perf_lab_dma.add1(xc, nbuf, ty, threads),
+            perf_lab_dma.add1_plain(xc, nbuf),
+            f"add1 {tuple(xc.shape)} ty={ty} nbuf={nbuf}"))
+    del x
+    for shape, ty in PROBE_WINDOW_CASES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        y = torch.randn((1,) * (3 - len(shape)) + shape, generator=gen,
+                        device=dev)
+        err["window"] = max(err["window"], _exact(
+            perf_lab_element.window(x, y, ty),
+            perf_lab_element.window_plain(x, y, ty), f"window {shape}"))
+    x, y = perf_lab_element.b1_inputs(dev)
+    for ty in perf_lab_element.B1_TYS:
+        err["window"] = max(err["window"], _exact(
+            perf_lab_element.window(x, y, ty),
+            perf_lab_element.window_plain(x, y, ty), f"window ty={ty}"))
+    del x, y
+    for shape in (probe_mincog_kernel.TOOL_SHAPE,
+                  probe_mincog_kernel.GRID_SHAPE):
+        c0, a, decay = probe_mincog_kernel.solver_inputs(shape, 0, dev)
+        err["solver"] = max(err["solver"], _exact(
+            probe_mincog_kernel.solver(c0, a, decay),
+            probe_mincog_kernel.solver_plain(c0, a, decay),
+            f"solver {shape}"))
+    log("probe kernels == plain versions bit for bit: P1 at "
+        f"{len(SHAPES) + 1} shapes x 2 routes, P2 at {len(cases)} cases, "
+        f"P3 at {len(PROBE_WINDOW_CASES) + 2}, P4 at 2; max abs err {err}")
+    return err
+
+
+def phase_probe_times(dev, smi: str, reps=10) -> dict:
+    """The measurement path: B1 against P1 in turns at 32x719x929 on
+    phase 5's inputs, masked and all-defined; P2's sweep; P3 at the tool's
+    shape and at B1's beside P2's one buffer; P4 at the tool's shape and
+    719x929 against its operation count.  Kernel times are the launch
+    alone (queued behind a busy wait), median of ``reps``; plain times
+    through CUDA events.  The probes' launch counts are zeroed before and
+    read after, and each must be > 0.  Bounds at the card's published
+    rates (``utils.profiling``)."""
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.tools import (
+        bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel)
+    from mi_fieldcalc_tpu_torch.utils.profiling import (
+        device_f32_flops, device_hbm_gbps)
+    hbm, peak = device_hbm_gbps(dev), device_f32_flops(dev)
+    wrappers = {"copy": bench_copy.copy_probe, "add1": perf_lab_dma.add1,
+                "window": perf_lab_element.window,
+                "solver": probe_mincog_kernel.solver}
+    for w in wrappers.values():
+        w.launches = 0
+    res = {"card": smi, "hbm_bytes_per_s": hbm, "f32_flops": peak}
+    log(f"[{smi}] published rates: {hbm / 1e12:.2f} TB/s, "
+        f"{peak / 1e12:.0f} TFLOP/s float32")
+
+    # P1 and B1 in turns
+    for label, undefs in (("masked", True), ("all_defined", False)):
+        args = make_inputs(NLEV, NY, NX, 4, undefs, "column")
+        host, ad = staging._decode_step(args, staging.HostStager(4), 1e35)
+        staged = staging._upload_step(host, dev)
+        r = bench_copy.b1_against_copy(staged, ad, rounds=3, reps=reps)
+        nb = bench_copy.copy_bytes(NLEV, NY, NX, ad)
+        bound = nb / hbm * 1e3
+        r.update(bytes=nb, bound_ms=bound,
+                 probe_of_bound=bound / r["probe_ms"],
+                 b1_of_bound=bound / r["b1_ms"])
+        if label == "masked":
+            sel = staged[:5] + staged[7:9]
+            r["plain_ms"] = statistics.median(time_ms(
+                lambda: bench_copy.copy_probe_plain(*sel, ad), reps))
+        res[f"copy_{label}"] = r
+        log(f"[{smi}] {label}: P1 (copy probe) {r['probe_ms']:.4f} ms "
+            f"({r['probe_cap']}), B1 {r['b1_ms']:.4f} ms, B1 / P1 "
+            f"{r['b1_over_probe']:.3f} (medians {r['medians']}, rounds "
+            f"{r['rounds']}); bytes bound {bound:.4f} ms "
+            f"({nb / 1e9:.3f} GB at {hbm / 1e12:.2f} TB/s): P1 at "
+            f"{r['probe_of_bound']:.1%}, B1 at {r['b1_of_bound']:.1%}")
+        del staged, host
+
+    # P2: the sweep
+    x = torch.randn((NLEV, NY, NX), generator=torch.Generator(device=dev)
+                    .manual_seed(0), device=dev)
+    rows = perf_lab_dma.sweep(x, reps)
+    one = next(r for r in rows if (r["ty"], r["nbuf"], r["threads"])
+               == (48, 1, 256))
+    res["add1"] = {"rows": rows, "ms": one["ms"],
+                   "library_ms": rows[0]["ms"],
+                   "plain_ms": statistics.median(time_ms(
+                       lambda: perf_lab_dma.add1_plain(x), reps)),
+                   "bytes": 8 * x.numel(), "bound_ms": 8 * x.numel() / hbm
+                   * 1e3}
+    for r in rows:
+        what = (r["case"] if r["ty"] is None else
+                f"{r['case']} ty={r['ty']} bufs={r['nbuf']} "
+                f"threads={r['threads']}")
+        log(f"[{smi}] P2 {what}: {r['ms']:.4f} ms, {r['gbps']:.1f} GB/s")
+
+    # P3: the tool's case and B1's shape beside P2's one buffer
+    xt = torch.arange(32 * 256, dtype=torch.float32,
+                      device=dev).reshape(32, 256)
+    yt = torch.ones((1, 32, 256), dtype=torch.float32, device=dev)
+    tool_ms = statistics.median(time_device_ms(
+        lambda: perf_lab_element.window(xt, yt, 8), reps))
+    y = torch.randn(x.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev)
+    b1s = perf_lab_element.at_b1_shape(x, y, reps)
+    nb = b1s["ty8"]["bytes"]
+    res["window"] = {"tool_ms": tool_ms, "b1_shape": b1s,
+                     "ms": b1s["ty8"]["ms"], "bytes": nb,
+                     "bound_ms": nb / hbm * 1e3,
+                     "plain_ms": statistics.median(time_ms(
+                         lambda: perf_lab_element.window_plain(x, y, 8),
+                         reps))}
+    log(f"[{smi}] P3 32x256 TY 8: {tool_ms:.4f} ms (launch-bound); at "
+        f"{NLEV}x{NY}x{NX}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms ({v['gbps']:.1f} GB/s)"
+            for k, v in b1s.items()))
+    del x, y
+
+    # P4 against its operation count
+    res["solver"] = {}
+    for key, shape in (("tool", probe_mincog_kernel.TOOL_SHAPE),
+                       ("grid", probe_mincog_kernel.GRID_SHAPE)):
+        c0, a, decay = probe_mincog_kernel.solver_inputs(shape, 0, dev)
+        trips, done = probe_mincog_kernel.solver_trips(c0, a)
+        ops = probe_mincog_kernel.solver_ops(trips)
+        nb = 12 * c0.numel()
+        ms = statistics.median(time_device_ms(
+            lambda: probe_mincog_kernel.solver(c0, a, decay), reps))
+        pms = statistics.median(time_ms(
+            lambda: probe_mincog_kernel.solver_plain(c0, a, decay), 3))
+        o_ms, b_ms = ops / peak * 1e3, nb / hbm * 1e3
+        res["solver"][key] = {
+            "shape": list(shape), "ms": ms, "plain_ms": pms, "ops": ops, "bytes": nb,
+            "unconverged": int((~done).sum()),
+            "lane_iterations": int(trips.sum()),
+            "bound_ms": max(o_ms, b_ms),
+            "bound_by": "operations" if o_ms >= b_ms else "bytes"}
+        log(f"[{smi}] P4 {shape}: {ms:.4f} ms (plain {pms:.3f} ms); "
+            f"{int(trips.sum())} lane-iterations, {int((~done).sum())} lanes "
+            f"unconverged at the cap; {ops:.3e} operations -> {o_ms:.4f} ms "
+            f"at {peak / 1e12:.0f} TFLOP/s, {nb / 1e6:.1f} MB -> "
+            f"{b_ms:.4f} ms")
+    res["launches"] = {k: w.launches for k, w in wrappers.items()}
+    log(f"measurement path launches: {res['launches']}")
+    if not all(res["launches"].values()):
+        raise AssertionError(f"a probe kernel was not launched on the "
+                             f"measurement path: {res['launches']}")
+    return res
+
+
+def phase_request_trace(dev, smi: str) -> dict:
+    """One masked ``run_derived_fields_np`` request at 32x719x929 (phase
+    5's inputs) under ``utils.profiling.trace``: the device's busy share
+    of the request's wall time and B1 found in the trace by name.  Where
+    the trace holds no device events, the share comes from CUDA events
+    around the request's H2D, kernel and D2H steps instead, and the
+    record says which method gave it."""
+    import tempfile
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.utils.profiling import (
+        device_busy_ms, device_events, trace)
+    args = make_inputs(NLEV, NY, NX, 5, True, "column")
+    ref = staging.run_derived_fields_np(*args, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    staging.run_derived_fields_np(*args, device=dev)
+    torch.cuda.synchronize(dev)
+    wall_untraced = (time.perf_counter() - t0) * 1e3
+    events = []
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            with trace(d) as prof:
+                t0 = time.perf_counter()
+                out = staging.run_derived_fields_np(*args, device=dev)
+                torch.cuda.synchronize(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            events = device_events(prof.trace_path)
+            busy = device_busy_ms(prof.trace_path)
+        except RuntimeError as e:
+            log(f"torch.profiler did not trace the request: {e!r}")
+    res = {"wall_untraced_ms": wall_untraced}
+    if events:
+        compare_dicts(out, ref, "traced request")
+        by = {}
+        for _, cat, _, dur in events:
+            by[cat] = by.get(cat, 0.0) + dur / 1e3
+        b1 = [e for e in events if "derived_fields_kernel" in e[0]]
+        if len(b1) != 1:
+            raise AssertionError(f"B1 found {len(b1)} times in the trace")
+        res.update(method="torch.profiler trace (kernel, gpu_memcpy, "
+                   "gpu_memset intervals)", wall_ms=wall, busy_ms=busy,
+                   by_category_ms=by, b1_trace_ms=b1[0][3] / 1e3,
+                   b1_name=b1[0][0], device_events=len(events))
+    else:
+        log("no device events in the torch.profiler trace: the busy share "
+            "is taken from CUDA events around H2D, kernel and D2H")
+        stager = staging._stager_cache(4, 1e35)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        host, ad = staging._decode_step(args, stager, 1e35)
+        ev[0].record()
+        staged = staging._upload_step(host, dev)
+        ev[1].record()
+        ev[2].record()
+        out_dev = staging._compute(staged, ad)
+        ev[3].record()
+        ev[4].record()
+        fetched = staging._fetch(out_dev)
+        ev[5].record()
+        staging._encode_step(*fetched, 1e35)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        parts = [ev[k].elapsed_time(ev[k + 1]) for k in (0, 2, 4)]
+        res.update(method="CUDA events around H2D, kernel and D2H",
+                   wall_ms=wall, busy_ms=sum(parts),
+                   by_category_ms=dict(zip(("h2d", "kernel", "d2h"), parts)))
+    res["busy_share"] = res["busy_ms"] / res["wall_ms"]
+    res["busy_share_untraced"] = res["busy_ms"] / wall_untraced
+    log(f"[{smi}] request ({res['method']}): device busy "
+        f"{res['busy_ms']:.3f} ms of the measured request's "
+        f"{res['wall_ms']:.2f} ms ({res['busy_share']:.2%}); of an "
+        f"untraced request's {wall_untraced:.2f} ms "
+        f"{res['busy_share_untraced']:.2%}; by kind "
+        f"{res['by_category_ms']}" + (
+            f"; B1 '{res['b1_name']}' {res['b1_trace_ms']:.4f} ms"
+            if "b1_name" in res else ""))
+    return res
+
+
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
@@ -1865,6 +2165,10 @@ def main() -> int:
     icing_golden = phase_icing_golden(dev)
     icing_times = phase_icing_times(dev, smi, times["copy_gbps"],
                                     env["f32_rate"])
+    log("== phase 10: measurement probes")
+    probe_err = phase_probe_kernels(dev)
+    probes = phase_probe_times(dev, smi)
+    request_trace = phase_request_trace(dev, smi)
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -1875,18 +2179,27 @@ def main() -> int:
         "suites": suites, "icing": {
             "kernels": icing_kernels, "path": icing_path,
             "golden": icing_golden, "times": icing_times},
-        "wall_s": wall}))
+        "probes": {"max_abs_err": probe_err, **probes},
+        "request_trace": request_trace, "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
+    hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
 
-    def bound(nbytes, ops):
+    def bound(nbytes, ops, library_ms=None):
+        """``bound_ms`` at the card's published rates; ``copy_bound_ms``
+        at this run's device-copy rate and the un-fused issue rate, the
+        bound of the records before phase 10."""
         b_ms, o_ms = nbytes / copy / 1e6, ops / env["f32_rate"] * 1e3
+        pb_ms, po_ms = nbytes / hbm * 1e3, ops / peak * 1e3
         log(f"bound of {nbytes / 1e9:.3f} GB and {ops:.3e} operations: "
-            f"bytes {b_ms:.4f} ms, operations {o_ms:.4f} ms (at 67 TFLOP/s "
-            f"{ops / PEAK_F32_FMA * 1e3:.4f} ms)")
-        return {"bound_ms": max(b_ms, o_ms),
-                "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "library_ms": None}
+            f"published bytes {pb_ms:.4f} ms, operations {po_ms:.4f} ms; "
+            f"at the copy rate {b_ms:.4f} ms, at the un-fused issue rate "
+            f"{o_ms:.4f} ms")
+        return {"bound_ms": max(pb_ms, po_ms),
+                "bound_by": "bytes" if pb_ms >= po_ms else "operations",
+                "copy_bound_ms": max(b_ms, o_ms),
+                "copy_bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "library_ms": library_ms}
 
     pts1 = NLEV * NY * NX
     nlev4, ny4, nx4 = ISO_SHAPE
@@ -1958,10 +2271,41 @@ def main() -> int:
         "max_abs_err": icing_kernels["max_abs_err"][name],
         "ms": icing_times[name]["kernel_ms"],
         "plain_ms": icing_times[name]["plain_ms"],
-        "bound_ms": icing_times[name]["bound_ms"],
-        "bound_by": icing_times[name]["bound_by"],
-        "library_ms": None,
+        **bound(icing_times[name]["bytes"], icing_times[name]["ops"]),
     } for name in ("mincog", "modstall")]
+    grid = probes["solver"]["grid"]
+    p1 = probes["copy_masked"]
+    kernels += [{
+        "name": "probe_copy", "route": "cuda", "source": src + "probes.cu",
+        "replaces": "bench.py:212",
+        "launches": probes["launches"]["copy"],
+        "max_abs_err": probe_err["copy"],
+        "ms": p1["probe_ms"], "plain_ms": p1["plain_ms"],
+        **bound(p1["bytes"], OPS_COPY_POINT * NLEV * NY * NX),
+    }, {
+        "name": "probe_add1", "route": "cuda", "source": src + "probes.cu",
+        "replaces": "tools/perf_lab_dma.py:43",
+        "launches": probes["launches"]["add1"],
+        "max_abs_err": probe_err["add1"],
+        "ms": probes["add1"]["ms"], "plain_ms": probes["add1"]["plain_ms"],
+        **bound(probes["add1"]["bytes"], NLEV * NY * NX,
+                probes["add1"]["library_ms"]),
+    }, {
+        "name": "probe_window", "route": "cuda", "source": src + "probes.cu",
+        "replaces": "tools/perf_lab_element.py:28",
+        "launches": probes["launches"]["window"],
+        "max_abs_err": probe_err["window"],
+        "ms": probes["window"]["ms"],
+        "plain_ms": probes["window"]["plain_ms"],
+        **bound(probes["window"]["bytes"], NLEV * NY * NX),
+    }, {
+        "name": "probe_solver", "route": "cuda", "source": src + "probes.cu",
+        "replaces": "tools/probe_mincog_kernel.py:20",
+        "launches": probes["launches"]["solver"],
+        "max_abs_err": probe_err["solver"],
+        "ms": grid["ms"], "plain_ms": grid["plain_ms"],
+        **bound(grid["bytes"], grid["ops"]),
+    }]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -125,10 +125,15 @@ def load_library() -> ctypes.CDLL:
     lib.mf_vessel_icing_mincog.argtypes = [pp] + [p] * 4 + [i, f, i, p, i, p]
     lib.mf_vessel_icing_modstall.argtypes = [pp] + [p] * 3 + [i, f, p, i, p]
     lib.mf_vessel_icing_attributes.argtypes = [i] + [ip] * 4
+    lib.mf_probe_copy.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.mf_probe_add1.argtypes = [p, pp] + [i] * 6 + [p]
+    lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.mf_probe_solver.argtypes = [p] * 4 + [i, p]
     for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,
                lib.mf_alevel_suite, lib.mf_hlevel_suite,
                lib.mf_vessel_icing_mincog, lib.mf_vessel_icing_modstall,
-               lib.mf_vessel_icing_attributes):
+               lib.mf_vessel_icing_attributes, lib.mf_probe_copy,
+               lib.mf_probe_add1, lib.mf_probe_window, lib.mf_probe_solver):
         fn.restype = i
     lib.mf_error_string.argtypes = [i]
     lib.mf_error_string.restype = ctypes.c_char_p

@@ -3,9 +3,11 @@
 A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
 C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
 ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
-``atomicAdd`` is a plain add, ``__int_as_float`` is a ``memcpy``, and each
-``<<<grid, block>>>`` launch becomes a host loop over ``blockIdx`` (y, then
-x) that runs each block as one thread (``blockDim.x = 1``).  That is right
+``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``
+is a plain add, ``__int_as_float`` is a ``memcpy``, and each
+``<<<grid, block>>>`` launch becomes a host loop over ``blockIdx`` (z, y,
+then x) that runs each block as one thread (``blockDim`` = 1 in every
+dimension).  That is right
 for kernels whose every phase is a block-stride loop: one thread runs all
 of its block's work in turn.  With ``-ffp-contract=off`` every float
 operation rounds on its own, as the card's ``-fmad=false`` build does, so
@@ -41,6 +43,7 @@ typedef int cudaError_t;
 static const int cudaErrorInvalidValue = 1;
 static inline int cudaGetLastError() { return 0; }
 static inline void __syncthreads() {}
+static inline int __syncthreads_and(int p) { return p != 0; }
 template <class T> static inline T atomicAdd(T* p, T v) {
   const T old = *p;
   *p = old + v;
@@ -55,6 +58,9 @@ static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
   *a = cudaFuncAttributes();
   return 0;
 }
+static const int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <class K>
+static inline cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -74,13 +80,15 @@ template <class T> static inline T __ldg(const T* p) { return *p; }
 using std::min;
 using std::max;
 template <class K, class P>
-void host_launch(K kernel, dim3 grid, unsigned, const P& params) {
+void host_launch(K kernel, dim3 grid, dim3, const P& params) {
   blockDim = dim3(1);
-  threadIdx = dim3(0);
-  for (unsigned y = 0; y < grid.y; ++y) {
-    for (unsigned b = 0; b < grid.x; ++b) {
-      blockIdx = dim3(b, y);
-      kernel(params);
+  threadIdx = dim3(0, 0, 0);
+  for (unsigned z = 0; z < grid.z; ++z) {
+    for (unsigned y = 0; y < grid.y; ++y) {
+      for (unsigned b = 0; b < grid.x; ++b) {
+        blockIdx = dim3(b, y, z);
+        kernel(params);
+      }
     }
   }
 }
