@@ -8,15 +8,16 @@ Phases (any failure raises and exits non-zero):
    and nvcc versions, and whether triton imports;
 2. build: the CUDA kernel library (nvcc) and the host codec (g++), timed;
 3. the kernel against its plain PyTorch version on the card, masked and
-   all-defined, at small and ragged shapes: masks bitwise, values within
-   rtol 2e-5 on defined points;
+   all-defined, at small and ragged shapes: masks bitwise, values bit for
+   bit on defined points (NaN where NaN);
 4. the main path: 3 requests through ``staging.run_derived_fields_np`` at
    the 32-level 719x929 AROME size (undef lanes live, fully defined, undef
    lanes live), each compared with the plain version on the same CUDA
-   tensors; the kernel must have been launched exactly 3 times;
-5. times on this card: kernel and plain medians (CUDA events), effective
-   GB/s, a device copy's GB/s for scale, and one request split into
-   decode, H2D, kernel, D2H and encode;
+   tensors, bit for bit; the kernel must have been launched exactly 3
+   times;
+5. times on this card: kernel and plain medians (CUDA events; the kernel
+   also as the launch alone), effective GB/s, a device copy's GB/s for
+   scale, and one request split into decode, H2D, kernel, D2H and encode;
 6. the column-interpolation kernel and the two suite kernels against
    their plain versions on the card, at phase 3's shapes and a 137-level
    column (137, 9, 150): masked and all-defined, ln p and p, targets above
@@ -27,8 +28,10 @@ Phases (any failure raises and exits non-zero):
 7. the isobaric path at BASELINE config 4's full size, 137x719x929 -> the
    11 standard surfaces: ``derived_fields_isobaric(fused=True,
    stacked=True)`` must launch the interpolation kernel and the pipeline
-   kernel once each and equal the plain composition; then its times, split
-   into the two kernels;
+   kernel once each and equal the plain composition bit for bit, and the
+   interpolation kernel its plain version on config 4's ps and on a smooth
+   ps of the same range; then its times, split into the two kernels (each
+   also as the launch alone), and the interpolation on the smooth ps;
 8. the suite entry: 3 requests through ``staging.run_hlevel_suite_np`` at
    32x719x929 with BASELINE config 2's request set (undef lanes live,
    fully defined, undef lanes live; 3 launches, the all-defined route as
@@ -61,7 +64,7 @@ Phases (any failure raises and exits non-zero):
    and 719x929, each equal to its plain version bit for bit; then, with
    the probes' launch counts zeroed before and read after (each must be
    > 0): B1 against P1 in turns on phase 5's inputs, masked and
-   all-defined, B1's time over P1's and both against the bytes bound at
+   all-defined (B1 first held to its plain version), B1's time over P1's and both against the bytes bound at
    the published 3.35 TB/s; P2's sweep in GB/s beside ``torch.add(x, 1)``;
    P3 beside P2's one buffer; P4 against its operation count; and one
    masked ``run_derived_fields_np`` request under
@@ -83,6 +86,8 @@ two).
 
     python3 chip_smoke.py --icing-times DIR [DIR ...]
     python3 chip_smoke.py --suite-times DIR [DIR ...]
+    python3 chip_smoke.py --pipeline-times DIR [DIR ...]
+    python3 chip_smoke.py --interp-times DIR [DIR ...]
 
 time one family of kernels alone in each checkout DIR in turn (for two
 versions on one card: parent, change, change, parent), each first held
@@ -91,7 +96,11 @@ lines and SASS instruction counts (cuobjdump) of the family's kernels as
 built: B5 and B6 on phase 9's request 1; B3 (config 2, 10x719x929, a p
 field) and B4 (the suite entry's request 1, 32x719x929) on random and
 smooth fields, masked and all-defined, bit for bit, the launch alone and
-through the wrapper.  Each DIR needs only its ``mi_fieldcalc_tpu_torch/``.
+through the wrapper; B1 at 32x719x929 (phase 5's inputs, masked and
+all-defined) and on the isobaric path's 11 surfaces (phase 7's), and B2 at
+config 4 on its random and on a smooth ps, masked and all-defined, each
+bit for bit, the launch alone and through the wrapper.  Each DIR needs only
+its ``mi_fieldcalc_tpu_torch/``.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
 line is a JSON object with the kernels' records, the last
@@ -125,7 +134,7 @@ PEAK_F32_FMA = 67e12
 #: sources (adds, multiplies, divisions; compares and selects not
 #: counted): the bytes side bounds these kernels by a wide margin
 OPS_B1_POINT = 150          # per point and level, all 12 outputs
-OPS_B2_PAIR = 2             # per column, target and level pair (p_k1)
+OPS_B2_STEP = 2             # per column, target and search step (p_k)
 OPS_B2_TARGET = 80          # per column and target: two logs, the weights
 OPS_SUITE_OUTPUT = 20       # per output point of B3 / B4
 OPS_COPY_POINT = 30         # per point of the copy probe P1: its 18 adds
@@ -229,6 +238,19 @@ def make_column_inputs(nlev, ny, nx, seed, undef_frac, undef_ps=False):
     xm = np.full((ny, nx), 4.0e-7, np.float32)
     fc = np.full((ny, nx), 1.2e-4, np.float32)
     return tk, q, u, v, ps, alevel, blevel, xm, xm.copy(), fc
+
+
+def smooth_ps(ny, nx, seed) -> np.ndarray:
+    """A surface pressure of config 4's range (950-1030 hPa) that varies
+    slowly over the grid, as a model's does: one wave along x times one
+    along y, so neighbouring columns bracket each target at the same or
+    the next level."""
+    rng = np.random.default_rng(seed)
+    ph = rng.uniform(0.0, 2.0 * np.pi, 2)
+    y = np.arange(ny, dtype=np.float64)[:, None] / ny
+    x = np.arange(nx, dtype=np.float64)[None, :] / nx
+    return (990.0 + 40.0 * np.sin(2.0 * np.pi * x + ph[0])
+            * np.cos(2.0 * np.pi * y + ph[1])).astype(np.float32)
 
 
 def make_suite_inputs(nlev, ny, nx, seed, undef_frac, plant=True):
@@ -344,10 +366,18 @@ def time_ms(fn, reps: int, warmup: bool = True) -> list:
     return out
 
 
+def same_bits(a, b):
+    """Where two float32 tensors are equal bit for bit, or both NaN."""
+    import torch
+    return (a.view(torch.int32) == b.view(torch.int32)) | (
+        torch.isnan(a) & torch.isnan(b))
+
+
 def compare_stacked(got, ref, label: str) -> dict:
-    """Kernel vs plain on the card: masks bitwise, values within RTOL on
-    defined points (NaN equal to NaN).  Returns per-output max relative
-    and absolute errors."""
+    """B1 vs its plain version on the card: masks bitwise, values bit for
+    bit on defined points (NaN where NaN); raises otherwise.  Returns
+    per-output max relative and absolute errors (0.0) and whether the
+    values are equal at every point too (``every_point``)."""
     import torch
     from mi_fieldcalc_tpu_torch.models.pipeline import DerivedFieldsStacked
     if got.masks.shape != ref.masks.shape or not torch.equal(got.masks,
@@ -359,22 +389,38 @@ def compare_stacked(got, ref, label: str) -> dict:
     for i, name in enumerate(NAMES):
         m = DerivedFieldsStacked.mask_plane(got.masks, i, got.values[i])
         g, r = got.values[i][m], ref.values[i][m]
-        both_nan = torch.isnan(g) & torch.isnan(r)
-        err = torch.where(both_nan, torch.zeros_like(g), (g - r).abs())
-        bad = ~(err <= RTOL * r.abs())
+        bad = ~same_bits(g, r)
         if bool(bad.any()):
             k = int(bad.nonzero()[0, 0])
             raise AssertionError(
-                f"{label} {name}: {int(bad.sum())} values outside rtol "
-                f"{RTOL}, e.g. kernel {float(g[k])!r} plain {float(r[k])!r}")
-        scale = torch.where(r == 0, torch.ones_like(r), r.abs())
-        rel[name] = float((err / scale).max()) if err.numel() else 0.0
-        absd[name] = float(err.max()) if err.numel() else 0.0
-    return {"max_rel": rel, "max_abs": absd}
+                f"{label} {name}: {int(bad.sum())} defined values not bit "
+                f"for bit, e.g. kernel {float(g[k])!r} plain {float(r[k])!r}")
+        rel[name] = absd[name] = 0.0
+    every = bool(same_bits(got.values, ref.values).all())
+    return {"max_rel": rel, "max_abs": absd, "every_point": every}
+
+
+def compare_fields_exact(got, ref, label: str) -> bool:
+    """B2 vs its plain version (lists of Fields): masks bitwise, values bit
+    for bit at every point (NaN where NaN); raises otherwise."""
+    import torch
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} outputs, plain "
+                             f"{len(ref)}")
+    for k, (g, r) in enumerate(zip(got, ref)):
+        if not torch.equal(g.mask, r.mask):
+            raise AssertionError(f"{label} output {k}: masks differ at "
+                                 f"{int((g.mask != r.mask).sum())} points")
+        bad = ~same_bits(g.values, r.values)
+        if bool(bad.any()):
+            raise AssertionError(f"{label} output {k}: {int(bad.sum())} "
+                                 f"values not bit for bit")
+    return True
 
 
 def compare_dicts(got: dict, ref: dict, label: str) -> None:
-    """Sentinel dicts: identical undef positions, values within RTOL."""
+    """B1's sentinel dicts: identical undef positions, values bit for bit
+    (NaN where NaN)."""
     for name in NAMES:
         g, r = got[name], ref[name]
         if g.shape != r.shape:
@@ -384,13 +430,11 @@ def compare_dicts(got: dict, ref: dict, label: str) -> None:
         if not np.array_equal(ug, ur):
             raise AssertionError(f"{label} {name}: undef positions differ "
                                  f"at {int((ug != ur).sum())} points")
-        d = ~ur
-        with np.errstate(invalid="ignore"):
-            ok = (np.abs(g[d] - r[d]) <= RTOL * np.abs(r[d])) | (
-                np.isnan(g[d]) & np.isnan(r[d]))
+        ok = (g.view(np.int32) == r.view(np.int32)) | (
+            np.isnan(g) & np.isnan(r))
         if not ok.all():
             raise AssertionError(f"{label} {name}: {int((~ok).sum())} "
-                                 f"values outside rtol {RTOL}")
+                                 f"values not bit for bit")
 
 
 def check_physics(out: dict, nlev: int, ny: int, nx: int) -> None:
@@ -551,15 +595,18 @@ def phase_times(dev, smi: str, nlev=NLEV, ny=NY, nx=NX, reps=10,
         staged = staging._upload_step(host, dev)
         k = time_ms(lambda: fused.derived_fields_fused(
             *staged, all_defined=ad), reps)
+        alone = time_device_ms(lambda: fused._launch(*staged[:9], ad), reps)
         p = time_ms(lambda: fused.derived_fields_plain(
             *staged, all_defined=ad), reps)
         km, pm = statistics.median(k), statistics.median(p)
         res[label] = {
             "kernel_ms": km, "kernel_ms_all": k, "plain_ms": pm,
-            "plain_ms_all": p,
+            "plain_ms_all": p, "launch_ms": statistics.median(alone),
+            "launch_ms_all": alone,
             "gbps_bench_bytes": hbm_bytes(nlev, ny, nx) / km / 1e6,
             "gbps_layout_bytes": layout_bytes(nlev, ny, nx, ad) / km / 1e6}
-        log(f"[{smi}] {label}: kernel median {km:.4f} ms, plain "
+        log(f"[{smi}] {label}: kernel median {km:.4f} ms (the launch "
+            f"alone {res[label]['launch_ms']:.4f} ms), plain "
             f"{pm:.4f} ms ({pm / km:.1f}x), "
             f"{res[label]['gbps_bench_bytes']:.1f} GB/s by bench.py's byte "
             f"count, {res[label]['gbps_layout_bytes']:.1f} GB/s by the "
@@ -638,11 +685,10 @@ def phase_new_kernels(dev) -> dict:
                                                 all_defined=all_defined)
                 ref = vf.hlevel_to_plevel_plain(fields, ps, a, b, targets,
                                                 log_p, all_defined)
-                err = compare_fields(got, ref, label, defined_only=False)
-                worst["interp"] = max(worst["interp"], err)
+                compare_fields_exact(got, ref, label)
             del fields, ps
-    log(f"interp == plain at {len(KERNEL_SHAPES)} shapes x masked/"
-        f"all-defined x ln p/p: max abs err {worst['interp']!r}")
+    log(f"interp == plain bit for bit at {len(KERNEL_SHAPES)} shapes x "
+        f"masked/all-defined x ln p/p")
 
     # one column whose pressure is not monotone: 57 hPa is bracketed by
     # levels (0, 1) and (2, 3); the last bracket wins
@@ -660,8 +706,7 @@ def phase_new_kernels(dev) -> dict:
     nm_targets = (57.0, 500.0, 850.0)
     got = vf.hlevel_to_plevel_fused((f,), psf, on(al), on(bl), nm_targets)
     ref = vf.hlevel_to_plevel_plain((f,), psf, on(al), on(bl), nm_targets)
-    worst["interp"] = max(worst["interp"], compare_fields(
-        got, ref, "interp non-monotone column", defined_only=False))
+    compare_fields_exact(got, ref, "interp non-monotone column")
     x0, x1 = np.log(col[2]), np.log(col[3])
     want = fv[2, 1, 2] + (fv[3, 1, 2] - fv[2, 1, 2]) * (
         (np.log(57.0) - x0) / (x1 - x0))
@@ -757,13 +802,10 @@ def phase_isobaric(dev, smi: str, copy_gbps: float, reps=10) -> dict:
                              f"{launches}")
     # the plain composition on the same tensors
     tk, q, u, v, ps, a, b, xm, ym, fc = args
-    ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
-                torch.ones((ny, nx), dtype=torch.bool, device=dev))
-    plv = torch.tensor(STANDARD_PLEVELS, dtype=torch.float32, device=dev)
-    zeros = torch.zeros(nt, dtype=torch.float32, device=dev)
     interp = vf.hlevel_to_plevel_plain((tk, q, u, v), ps, a, b,
                                        STANDARD_PLEVELS)
-    plain = fused.derived_fields_plain(*interp, ps1, plv, zeros, xm, ym, fc)
+    plain = fused.derived_fields_plain(
+        *iso_surface_args(interp, xm, ym, fc, dev))
     errs = compare_stacked(out, plain, "isobaric full size")
     max_abs = max(errs["max_abs"].values())
     res = staging._encode_step(*staging._fetch(out), 1e35)
@@ -772,35 +814,57 @@ def phase_isobaric(dev, smi: str, copy_gbps: float, reps=10) -> dict:
         f"outputs within the physical bounds")
     del out, plain, res
 
+    # B2 alone at full size, bit for bit: on these inputs and on a smooth
+    # ps of the same range (neighbouring columns share their brackets)
+    fields4 = (tk, q, u, v)
+    kern = vf.hlevel_to_plevel_fused(fields4, ps, a, b, STANDARD_PLEVELS)
+    compare_fields_exact(kern, interp, "interp full size")
+    del interp
+    ps_s = Field(torch.as_tensor(smooth_ps(ny, nx, 3), device=dev), ps.mask)
+    compare_fields_exact(
+        vf.hlevel_to_plevel_fused(fields4, ps_s, a, b, STANDARD_PLEVELS),
+        vf.hlevel_to_plevel_plain(fields4, ps_s, a, b, STANDARD_PLEVELS),
+        "interp full size, smooth ps")
+    log("interp == plain bit for bit at full size on the random and the "
+        "smooth ps")
+
     # times: the two kernels and their plain versions, on these tensors
-    kern = vf.hlevel_to_plevel_fused((tk, q, u, v), ps, a, b,
-                                     STANDARD_PLEVELS)
     t_b2 = time_ms(lambda: vf.hlevel_to_plevel_fused(
-        (tk, q, u, v), ps, a, b, STANDARD_PLEVELS), reps)
+        fields4, ps, a, b, STANDARD_PLEVELS), reps)
+    l_b2 = time_device_ms(lambda: vf._launch(
+        fields4, ps, a, b, STANDARD_PLEVELS, True, False), reps)
+    s_b2 = time_ms(lambda: vf.hlevel_to_plevel_fused(
+        fields4, ps_s, a, b, STANDARD_PLEVELS), reps)
+    ls_b2 = time_device_ms(lambda: vf._launch(
+        fields4, ps_s, a, b, STANDARD_PLEVELS, True, False), reps)
     p_b2 = time_ms(lambda: vf.hlevel_to_plevel_plain(
-        (tk, q, u, v), ps, a, b, STANDARD_PLEVELS), reps)
-    t_b1 = time_ms(lambda: fused.derived_fields_fused(
-        *kern, ps1, plv, zeros, xm, ym, fc), reps)
-    p_b1 = time_ms(lambda: fused.derived_fields_plain(
-        *kern, ps1, plv, zeros, xm, ym, fc), reps)
-    med = {k: statistics.median(x) for k, x in
-           (("interp_ms", t_b2), ("interp_plain_ms", p_b2),
-            ("derived_fields_ms", t_b1), ("derived_fields_plain_ms", p_b1))}
+        fields4, ps, a, b, STANDARD_PLEVELS), reps)
+    sargs = iso_surface_args(kern, xm, ym, fc, dev)
+    t_b1 = time_ms(lambda: fused.derived_fields_fused(*sargs), reps)
+    l_b1 = time_device_ms(lambda: fused._launch(*sargs[:9], False), reps)
+    p_b1 = time_ms(lambda: fused.derived_fields_plain(*sargs), reps)
+    runs = (("interp_ms", t_b2), ("interp_launch_ms", l_b2),
+            ("interp_smooth_ms", s_b2), ("interp_smooth_launch_ms", ls_b2),
+            ("interp_plain_ms", p_b2), ("derived_fields_ms", t_b1),
+            ("derived_fields_launch_ms", l_b1),
+            ("derived_fields_plain_ms", p_b1))
+    med = {k: statistics.median(x) for k, x in runs}
     nb = interp_bytes(4, nlev, nt, ny, nx, False)
     gbps = {k: v / med["interp_ms"] / 1e6 for k, v in nb.items()}
     log(f"[{smi}] isobaric step: interp kernel {med['interp_ms']:.4f} ms "
-        f"(plain {med['interp_plain_ms']:.3f} ms), pipeline kernel on the "
-        f"{nt} surfaces {med['derived_fields_ms']:.4f} ms (plain "
+        f"(the launch alone {med['interp_launch_ms']:.4f} ms; smooth ps "
+        f"{med['interp_smooth_ms']:.4f} / "
+        f"{med['interp_smooth_launch_ms']:.4f} ms; plain "
+        f"{med['interp_plain_ms']:.3f} ms), pipeline kernel on the "
+        f"{nt} surfaces {med['derived_fields_ms']:.4f} ms (the launch alone "
+        f"{med['derived_fields_launch_ms']:.4f} ms; plain "
         f"{med['derived_fields_plain_ms']:.3f} ms); interp "
         f"{gbps['stack']:.1f} GB/s by whole-stack bytes "
         f"({nb['stack'] / 1e9:.3f} GB), {gbps['bracket']:.1f} GB/s by "
         f"bracket-read bytes; device copy {copy_gbps:.1f} GB/s")
     return {"launches": launches, "max_abs_err": max_abs,
             "inputs_gb": in_gb, "peak_device_gb": peak_gb,
-            "times": {**med, "interp_ms_all": t_b2,
-                      "interp_plain_ms_all": p_b2,
-                      "derived_fields_ms_all": t_b1,
-                      "derived_fields_plain_ms_all": p_b1},
+            "times": {**med, **{k + "_all": x for k, x in runs}},
             "interp_gbps": gbps, "interp_bytes": nb}
 
 
@@ -902,29 +966,130 @@ def time_device_ms(fn, reps: int) -> list:
     return out
 
 
+def time_case(launch, wrapper, check) -> dict:
+    """One case of a ``TIME_CASES`` family: ``check()`` holds the kernel to
+    its plain version (raises otherwise; returns whether the values are
+    equal at every point too), then 20 launches to warm up and the median
+    of 30 device times of the launch alone (:func:`time_device_ms`, ``ms``)
+    and of 30 through the wrapper (:func:`time_ms`, ``wrapper_ms``)."""
+    every = check()
+    for _ in range(20):
+        launch()
+    ms = time_device_ms(launch, 30)
+    wms = time_ms(wrapper, 30)
+    return {"ms": statistics.median(ms), "ms_all": ms,
+            "wrapper_ms": statistics.median(wms), "wrapper_ms_all": wms,
+            "equal": True, "equal_every_point": every}
+
+
+def iso_surface_args(interp_out, xm, ym, fc, dev) -> tuple:
+    """B1's arguments on the isobaric path (derived_fields_isobaric): the
+    interpolated stacks, a zero all-defined ps and the surfaces as alevel
+    with blevel = 0."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
+    ny, nx = interp_out[0].values.shape[-2:]
+    nt = len(STANDARD_PLEVELS)
+    ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
+                torch.ones((ny, nx), dtype=torch.bool, device=dev))
+    return (*interp_out, ps1,
+            torch.tensor(STANDARD_PLEVELS, dtype=torch.float32, device=dev),
+            torch.zeros(nt, dtype=torch.float32, device=dev), xm, ym, fc)
+
+
+def pipeline_time_cases(dev) -> dict:
+    """B1 at the headline 32x719x929 on phase 5's inputs, masked and
+    all-defined, and on the isobaric path's 11 surfaces of 719x929 (B2's
+    output at config 4, phase 7's inputs), each held to its plain version
+    bit for bit (:func:`compare_stacked`), then timed (:func:`time_case`)."""
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
+    from mi_fieldcalc_tpu_torch.ops import fused
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+    cases = []
+    for label, undefs in (("masked", True), ("all_defined", False)):
+        args = make_inputs(NLEV, NY, NX, 4, undefs, "column")
+        host, ad = staging._decode_step(args, staging.HostStager(4), 1e35)
+        cases.append((f"{NLEV} levels {label}",
+                      staging._upload_step(host, dev), ad))
+        del host
+    raw = make_column_inputs(*ISO_SHAPE, seed=3, undef_frac=0.005)
+    col = tuple(from_sentinel(a, device=dev) for a in raw[:5])
+    a, b, xm, ym, fc = (torch.as_tensor(x, device=dev) for x in raw[5:])
+    del raw
+    interp = vf.hlevel_to_plevel_fused(col[:4], col[4], a, b,
+                                       STANDARD_PLEVELS)
+    del col
+    cases.append((f"{len(STANDARD_PLEVELS)} surfaces masked",
+                  iso_surface_args(interp, xm, ym, fc, dev), False))
+    out = {}
+    for label, args, ad in cases:
+        def check():
+            return compare_stacked(
+                fused._launch(*args[:9], ad),
+                fused.derived_fields_plain(*args, all_defined=ad),
+                f"pipeline {label}")["every_point"]
+
+        out[label] = time_case(
+            lambda: fused._launch(*args[:9], ad),
+            lambda: fused.derived_fields_fused(*args, all_defined=ad), check)
+    return out
+
+
+def interp_time_cases(dev) -> dict:
+    """B2 at BASELINE config 4 (137x719x929 -> the 11 surfaces, phase 7's
+    inputs) with its uniform random ps and with :func:`smooth_ps` of the
+    same range, masked and all-defined (the all-defined route reads no
+    mask; the values are the same), ln p; each held to its plain version
+    bit for bit (:func:`compare_fields_exact`), then timed
+    (:func:`time_case`)."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field, from_sentinel
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+    nlev, ny, nx = ISO_SHAPE
+    raw = make_column_inputs(nlev, ny, nx, seed=3, undef_frac=0.005)
+    fields = tuple(from_sentinel(x, device=dev) for x in raw[:4])
+    ps = from_sentinel(raw[4], device=dev)
+    a, b = (torch.as_tensor(x, device=dev) for x in raw[5:7])
+    del raw
+    tg = STANDARD_PLEVELS
+    out = {}
+    for kind in ("random", "smooth"):
+        if kind == "smooth":
+            ps = Field(torch.as_tensor(smooth_ps(ny, nx, 3), device=dev),
+                       ps.mask)
+        for ad in (False, True):
+            label = f"config4 {kind} ps {'all_defined' if ad else 'masked'}"
+            out[label] = time_case(
+                lambda: vf._launch(fields, ps, a, b, tg, True, ad),
+                lambda: vf.hlevel_to_plevel_fused(fields, ps, a, b, tg,
+                                                  all_defined=ad),
+                lambda: compare_fields_exact(
+                    vf._launch(fields, ps, a, b, tg, True, ad),
+                    vf.hlevel_to_plevel_plain(fields, ps, a, b, tg, True, ad),
+                    f"interp {label}"))
+    return out
+
+
 def suite_time_cases(dev, routes=(False, True)) -> dict:
     """B3 at config 2's own 10x719x929 with a p field and B4 on the suite
     entry's request-1 inputs at 32x719x929, random and smooth fields, in
     each route of ``routes`` (all-defined or not): each held to its plain
-    version (:func:`compare_suite_exact`), then 20 launches to warm up and
-    the median of 30 device times of the launch alone
-    (:func:`time_device_ms`, ``ms``) and of 30 through the stacked wrapper
-    (:func:`time_ms`, ``wrapper_ms``)."""
+    version (:func:`compare_suite_exact`), then timed (:func:`time_case`,
+    ``wrapper_ms`` through the stacked wrapper)."""
     out = {}
     for name, shape in (("alevel", A_SUITE_SHAPE), ("hlevel", SUITE_SHAPE)):
         for kind in ("random", "smooth"):
             for ad in routes:
                 label = f"{name} {kind} {'all_defined' if ad else 'masked'}"
                 launch, wrapper, plain = suite_case(dev, name, shape, kind, ad)
-                every = compare_suite_exact(launch(), plain(), label)
-                for _ in range(20):
-                    launch()
-                ms = time_device_ms(launch, 30)
-                wms = time_ms(wrapper, 30)
-                out[label] = {"ms": statistics.median(ms), "ms_all": ms,
-                              "wrapper_ms": statistics.median(wms),
-                              "wrapper_ms_all": wms, "equal": True,
-                              "equal_every_point": every}
+                out[label] = time_case(launch, wrapper,
+                                       lambda: compare_suite_exact(
+                                           launch(), plain(), label))
                 del launch, wrapper, plain
     return out
 
@@ -1809,6 +1974,7 @@ def phase_probe_times(dev, smi: str, reps=10) -> dict:
     rates (``utils.profiling``)."""
     import torch
     from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ops import fused
     from mi_fieldcalc_tpu_torch.tools import (
         bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel)
     from mi_fieldcalc_tpu_torch.utils.profiling import (
@@ -1823,11 +1989,14 @@ def phase_probe_times(dev, smi: str, reps=10) -> dict:
     log(f"[{smi}] published rates: {hbm / 1e12:.2f} TB/s, "
         f"{peak / 1e12:.0f} TFLOP/s float32")
 
-    # P1 and B1 in turns
+    # P1 and B1 in turns, B1 first held to its plain version
     for label, undefs in (("masked", True), ("all_defined", False)):
         args = make_inputs(NLEV, NY, NX, 4, undefs, "column")
         host, ad = staging._decode_step(args, staging.HostStager(4), 1e35)
         staged = staging._upload_step(host, dev)
+        compare_stacked(fused.derived_fields_fused(*staged, all_defined=ad),
+                        fused.derived_fields_plain(*staged, all_defined=ad),
+                        f"B1 {label} (phase 10)")
         r = bench_copy.b1_against_copy(staged, ad, rounds=3, reps=reps)
         nb = bench_copy.copy_bytes(NLEV, NY, NX, ad)
         bound = nb / hbm * 1e3
@@ -2003,7 +2172,9 @@ def phase_request_trace(dev, smi: str) -> dict:
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
-              "suite": (suite_time_cases, "suite_kernel")}
+              "suite": (suite_time_cases, "suite_kernel"),
+              "pipeline": (pipeline_time_cases, "derived_fields_kernel"),
+              "interp": (interp_time_cases, "interp_kernel")}
 
 #: run in a checkout by :func:`time_checkouts` (argv[1]: this script,
 #: whose inputs, cases and timers it uses; argv[2]: the family; the
@@ -2212,7 +2383,8 @@ def main() -> int:
                                 OPS_B1_POINT * pts1),
         "vertical_interp": bound(
             iso["interp_bytes"]["bracket"],
-            ny4 * nx4 * nt4 * ((nlev4 - 1) * OPS_B2_PAIR + OPS_B2_TARGET)),
+            ny4 * nx4 * nt4 * (nlev4.bit_length() * OPS_B2_STEP
+                               + OPS_B2_TARGET)),
         "alevel_suite": bound(suites["bytes"]["alevel"],
                               OPS_SUITE_OUTPUT * nout * an * ay * ax),
         "hlevel_suite": bound(suites["bytes"]["hlevel"],
@@ -2225,6 +2397,7 @@ def main() -> int:
         "launches": main_path["launches"],
         "max_abs_err": main_path["max_abs_err"],
         "ms": times["masked"]["kernel_ms"],
+        "launch_ms": times["masked"]["launch_ms"],
         "plain_ms": times["masked"]["plain_ms"],
         **bounds["derived_fields"],
     }, {
@@ -2235,6 +2408,8 @@ def main() -> int:
         "launches": iso["launches"]["interp"],
         "max_abs_err": max(iso["max_abs_err"], new_worst["interp"]),
         "ms": iso["times"]["interp_ms"],
+        "launch_ms": iso["times"]["interp_launch_ms"],
+        "smooth_ps_launch_ms": iso["times"]["interp_smooth_launch_ms"],
         "plain_ms": iso["times"]["interp_plain_ms"],
         **bounds["vertical_interp"],
     }, {

@@ -280,4 +280,15 @@ static __device__ __forceinline__ float ewt_inverse_tab(const float* tab,
   return -100.0f + (static_cast<float>(ll) + rr) * 5.0f;
 }
 
+// ---- the block's dynamic shared memory ------------------------------------
+// (the launch's third argument, 16-byte aligned); tests/cuda_host.py's host
+// build defines its own.
+#ifndef MF_HOST_SHIM
+template <class T>
+static __device__ __forceinline__ T* dynamic_shared() {
+  extern __shared__ __align__(16) unsigned char mf_dynamic_smem[];
+  return reinterpret_cast<T*>(mf_dynamic_smem);
+}
+#endif
+
 #endif  // MF_COMMON_CUH_

@@ -11,30 +11,62 @@
 // path, the 2 data-dependent gates (the humidity table gate and TFP's
 // |grad T| != 0), as 0/1 bytes.
 //
-// What bounds it: device-memory bytes.  Per point the work is a few dozen
-// flops, a table lookup and a 41-step compare loop, against 4 f32 + 4 mask
-// bytes read and 12 f32 + 9 mask bytes written; the JAX design notes
-// (fused.py:1-11) find the same trivial arithmetic intensity on the TPU.
+// What bounds it: device-memory bytes, and the rate at which this card
+// takes 21 output planes written at once.  Per point the work is a few
+// dozen flops, a table lookup and a 41-step compare count, against 4 f32 +
+// 4 mask bytes read and 12 f32 + 9 mask bytes written (1.655 GB masked,
+// 1.419 GB all-defined at 32x719x929: 0.4939 / 0.4235 ms at the published
+// 3.35 TB/s).  The first design (32x8 tiles, one thread a point, |grad T|
+// recomputed at the 4 neighbours for TFP) ran at the time of a copy with
+// its own access pattern (the probe P1, csrc/probes.cu), ~48% of 3.35
+// TB/s; the TPU lab's x + 1 into 12 buffers (P2) also moves ~1.75 TB/s.
 //
-// Design (the first, simple version): one thread per (lev, y, x), x
-// fastest, 32x8 blocks, gridDim.z = nlev.  Neighbours are read straight
-// from global memory through the read-only path, so each input byte moves
-// from device memory about once and L1/L2 absorb the halo reuse.  There
-// are no shared-memory tiles yet.
+// Design:
+// - one thread a point, 256-thread blocks over 64x4 tiles of a level
+//   (gridDim.z = nlev): a warp still writes 128 bytes of a value plane or
+//   32 bytes of a mask plane a store, but a block's part of each plane is 4
+//   rows of 256 (64) bytes instead of 8 rows of 128 (32), and the tile's
+//   halo rows stay few;
+// - |grad T| and its gate (tk defined at the 4 neighbours) are computed
+//   once per clamped point of the tile's window (the tile and a one-point
+//   ring, 396 points for 256) into shared memory, and TFP reads its 4
+//   neighbours there: 44 loads a point instead of 80, 949 SASS
+//   instructions instead of 1108 (masked; 742 instead of 896 all-defined);
+// - every phase is a block-stride loop, so the source also runs on the
+//   host with one thread per block (tests/test_torch_fused_host.py).
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// --pipeline-times, the launch alone, 3 pairs against the first design):
+// masked 1.0059-1.0155 ms against 1.0387-1.0399, all-defined 0.8003-0.8030
+// against 0.9394-0.9406, the isobaric 11 surfaces 0.3639-0.3705 against
+// 0.3841-0.3854: ~1.63 / ~1.77 TB/s, the 12-buffer rate of P2.  Staging
+// the planes in shared memory and writing them in 16-byte bursts (per flat
+// chunk of a plane or per tile row), smaller or larger tiles, and capping
+// or raising the blocks an SM holds were measured and were slower on the
+// masked route (PERF.md section 6).
 //
 // fillEdges (copy column 1 -> 0 and nx-2 -> nx-1, then row 1 -> 0 and
 // ny-2 -> ny-1) equals evaluating the raw stencil at the clamped point
 // (clamp(y, 1, ny-2), clamp(x, 1, nx-2)), whose neighbours always lie in
 // range.  TFP reads the *filled* |grad T| at its 4 neighbours; each is
-// recomputed here at its own clamped point, so one kernel does one pass.
+// the raw value at its own clamped point, taken from the tile's window.
 //
 // Numerics: built with -fmad=false and without --use_fast_math (see
 // common.cuh, which holds the constants, the EWT table, the deterministic
-// pow and the table lookups this kernel shares with the others).
+// pow and the table lookups this kernel shares with the others).  Every
+// output is the plain version's sequence of float32 operations
+// (ops/fused.derived_fields_plain); the kernel equals it bit for bit.
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileX = 64;              // a block's tile: kTileX x kTileY
+constexpr int kTileY = 4;               // points of one level
+constexpr int kPoints = kTileX * kTileY;
+// |grad T| and its gate on the tile and a one-point halo (clamped points)
+constexpr int kHaloX = kTileX + 2;
+constexpr int kHalo = kHaloX * (kTileY + 2);
 
 struct Params {
   const float* __restrict__ tk;
@@ -53,133 +85,158 @@ struct Params {
   const float* __restrict__ ymapr;
   float* __restrict__ out_values;
   uint8_t* __restrict__ out_masks;
-  int nlev, ny, nx;
+  int ny, nx;
+  int64_t n3;         // nlev * ny * nx: one output plane
 };
 
-// Raw |grad T| at an interior point r = yy*nx + xx of level `lev0`.
-__device__ __forceinline__ float grad_abs(const Params& P, int64_t lev0,
-                                          int64_t r) {
-  const float* t = P.tk + lev0;
-  const float dfdx = 0.5f * __ldg(P.xmapr + r) *
+// Raw |grad T| at an interior point r of the level plane t.
+__device__ __forceinline__ float grad_abs(const float* t, const float* xmapr,
+                                          const float* ymapr, int r, int nx) {
+  const float dfdx = 0.5f * __ldg(xmapr + r) *
                      (__ldg(t + r + 1) - __ldg(t + r - 1));
-  const float dfdy = 0.5f * __ldg(P.ymapr + r) *
-                     (__ldg(t + r + P.nx) - __ldg(t + r - P.nx));
+  const float dfdy = 0.5f * __ldg(ymapr + r) *
+                     (__ldg(t + r + nx) - __ldg(t + r - nx));
   return sqrtf(dfdx * dfdx + dfdy * dfdy);
 }
 
 // tk defined at the 4 neighbours of interior point r (gradient's mask).
-__device__ __forceinline__ bool ring4(const uint8_t* m, int64_t r, int nx) {
+__device__ __forceinline__ bool ring4(const uint8_t* m, int r, int nx) {
   return __ldg(m + r - 1) && __ldg(m + r + 1) && __ldg(m + r - nx) &&
          __ldg(m + r + nx);
 }
 
 template <bool kAllDefined>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 derived_fields_kernel(const Params P) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int lev = blockIdx.z;
+  __shared__ float s_grad[kHalo];
+  __shared__ uint8_t s_gate[kHalo];
   const int nx = P.nx, ny = P.ny;
-  if (x >= nx || y >= ny) return;
-
-  const int64_t plane2 = static_cast<int64_t>(ny) * nx;
-  const int64_t n3 = plane2 * P.nlev;           // one output plane
-  const int64_t lev0 = plane2 * lev;
-  const int64_t i2 = static_cast<int64_t>(y) * nx + x;
-  const int64_t i = lev0 + i2;
-  float* ov = P.out_values + i;
-  uint8_t* om = P.out_masks + i;
-
-  // ---- elementwise family (levels.py formulas) -------------------------
-  const float tkv = __ldg(P.tk + i);
-  const float qv = __ldg(P.q + i);
-  const float uv = __ldg(P.u + i);
-  const float vv = __ldg(P.v + i);
-  const float p_raw = __ldg(P.alevel + lev) +
-                      __ldg(P.blevel + lev) * __ldg(P.ps + i2);
-  const float pidcp = pow_kappa(p_raw * kP0inv);
-  bool psm = true, tkm = true, qm = true, um = true, vm = true;
-  if (!kAllDefined) {
-    psm = __ldg(P.psm + i2);
-    tkm = __ldg(P.tkm + i);
-    qm = __ldg(P.qm + i);
-    um = __ldg(P.um + i);
-    vm = __ldg(P.vm + i);
+  const int x0 = blockIdx.x * kTileX;
+  const int y0 = blockIdx.y * kTileY;
+  const int lev = blockIdx.z;
+  const int64_t lev0 = static_cast<int64_t>(lev) * ny * nx;
+  const float* tk = P.tk + lev0;
+  const float* qf = P.q + lev0;
+  const float* uf = P.u + lev0;
+  const float* vf = P.v + lev0;
+  // the mask pointers are null on the all-defined route
+  const uint8_t* tkm = kAllDefined ? nullptr : P.tkm + lev0;
+  const uint8_t* qm = kAllDefined ? nullptr : P.qm + lev0;
+  const uint8_t* um = kAllDefined ? nullptr : P.um + lev0;
+  const uint8_t* vm = kAllDefined ? nullptr : P.vm + lev0;
+  float* ov = P.out_values + lev0;
+  uint8_t* om = P.out_masks + lev0;
+  const float a_l = __ldg(P.alevel + lev);
+  const float b_l = __ldg(P.blevel + lev);
+  // The clamped points the tile's TFP reads (its points' clamped points
+  // and their clamped neighbours) lie in rows wy .. wy + kTileY + 1 and
+  // columns wx .. wx + kTileX + 1: entry (iy, ix) holds the raw |grad T|
+  // and gate at (min(wy + iy, ny - 2), min(wx + ix, nx - 2)).
+  const int wy = max(min(max(y0, 1), ny - 2) - 1, 1);
+  const int wx = max(min(max(x0, 1), nx - 2) - 1, 1);
+  for (int h = threadIdx.x; h < kHalo; h += blockDim.x) {
+    const int yy = min(wy + h / kHaloX, ny - 2);
+    const int xx = min(wx + h % kHaloX, nx - 2);
+    const int r = yy * nx + xx;
+    s_grad[h] = grad_abs(tk, P.xmapr, P.ymapr, r, nx);
+    if (!kAllDefined) s_gate[h] = ring4(tkm, r, nx);
   }
-  // alevelhum quirk: an undefined ps lets the sentinel into qsat
-  const float p_sent = psm ? p_raw : kUndef;
-  bool ok;
-  int l;
-  const float et = esat(tkv, &ok, &l);
-  const float qsat = kEps * et / p_sent;
-  const float rhc = clip_nan(qv / qsat, kRhmin, kRhmax);
+  __syncthreads();
 
-  ov[0 * n3] = p_raw;
-  ov[1 * n3] = tkv / pidcp;
-  ov[2 * n3] = 100.0f * qv / qsat;
-  ov[3 * n3] = ewt_inverse(rhc * et, l) + kT0;
-  ov[4 * n3] = (tkv * kCp + qv * kXlh) / (kCp * pidcp);
-  ov[5 * n3] = kDuct1 * (p_raw / tkv) +
-               kDuct2 * (qv * p_raw) / (kEps * tkv * tkv);
-  ov[6 * n3] = sqrtf(uv * uv + vv * vv);
+  for (int pt = threadIdx.x; pt < kPoints; pt += blockDim.x) {
+    const int y = y0 + pt / kTileX;
+    const int x = x0 + pt % kTileX;
+    if (y >= ny || x >= nx) continue;
+    const int i2 = y * nx + x;
+    float* o = ov + i2;
+    uint8_t* m = om + i2;
+    // ---- elementwise family (levels.py formulas) -----------------------
+    const float tkv = __ldg(tk + i2);
+    const float qv = __ldg(qf + i2);
+    const float uv = __ldg(uf + i2);
+    const float vv = __ldg(vf + i2);
+    const float p_raw = a_l + b_l * __ldg(P.ps + i2);
+    const float pidcp = pow_kappa(p_raw * kP0inv);
+    bool psm = true, tkd = true, qd = true, ud = true, vd = true;
+    if (!kAllDefined) {
+      psm = __ldg(P.psm + i2);
+      tkd = __ldg(tkm + i2);
+      qd = __ldg(qm + i2);
+      ud = __ldg(um + i2);
+      vd = __ldg(vm + i2);
+    }
+    // alevelhum quirk: an undefined ps lets the sentinel into qsat
+    const float p_sent = psm ? p_raw : kUndef;
+    bool ok;
+    int l;
+    const float et = esat(tkv, &ok, &l);
+    const float qsat = kEps * et / p_sent;
+    const float rhc = clip_nan(qv / qsat, kRhmin, kRhmax);
 
-  // ---- radius-1 stencils at the clamped point (fillEdges) --------------
-  const int cy = min(max(y, 1), ny - 2);
-  const int cx = min(max(x, 1), nx - 2);
-  const int64_t r = static_cast<int64_t>(cy) * nx + cx;
-  const int64_t c = lev0 + r;
-  const float xm = __ldg(P.xmapr + r);
-  const float ym = __ldg(P.ymapr + r);
-  const float dtx = __ldg(P.tk + c + 1) - __ldg(P.tk + c - 1);
-  const float dty = __ldg(P.tk + c + nx) - __ldg(P.tk + c - nx);
+    o[0 * P.n3] = p_raw;
+    o[1 * P.n3] = tkv / pidcp;
+    o[2 * P.n3] = 100.0f * qv / qsat;
+    o[3 * P.n3] = ewt_inverse(rhc * et, l) + kT0;
+    o[4 * P.n3] = (tkv * kCp + qv * kXlh) / (kCp * pidcp);
+    o[5 * P.n3] =
+        kDuct1 * (p_raw / tkv) + kDuct2 * (qv * p_raw) / (kEps * tkv * tkv);
+    o[6 * P.n3] = sqrtf(uv * uv + vv * vv);
 
-  ov[7 * n3] = 0.5f * xm * (__ldg(P.v + c + 1) - __ldg(P.v + c - 1)) -
-               0.5f * ym * (__ldg(P.u + c + nx) - __ldg(P.u + c - nx));
-  ov[8 * n3] = 0.5f * xm * (__ldg(P.u + c + 1) - __ldg(P.u + c - 1)) +
-               0.5f * ym * (__ldg(P.v + c + nx) - __ldg(P.v + c - nx));
-  ov[9 * n3] = (__ldg(P.u + c) * 0.5f * xm * dtx +
-                __ldg(P.v + c) * 0.5f * ym * dty) * kAdvScale;
+    // ---- radius-1 stencils at the clamped point (fillEdges) ------------
+    const int cy = min(max(y, 1), ny - 2);
+    const int cx = min(max(x, 1), nx - 2);
+    const int r = cy * nx + cx;
+    const float xm = __ldg(P.xmapr + r);
+    const float ym = __ldg(P.ymapr + r);
+    const float dtx = __ldg(tk + r + 1) - __ldg(tk + r - 1);
+    const float dty = __ldg(tk + r + nx) - __ldg(tk + r - nx);
 
-  // ---- |grad T| (filled) and TFP ----------------------------------------
-  const float a_c = grad_abs(P, lev0, r);
-  ov[10 * n3] = a_c;
-  // filled |grad T| at the 4 neighbours = raw at their clamped points
-  const int64_t rxm = static_cast<int64_t>(cy) * nx + max(cx - 1, 1);
-  const int64_t rxp = static_cast<int64_t>(cy) * nx + min(cx + 1, nx - 2);
-  const int64_t rym = static_cast<int64_t>(max(cy - 1, 1)) * nx + cx;
-  const int64_t ryp = static_cast<int64_t>(min(cy + 1, ny - 2)) * nx + cx;
-  const float dadx = 0.5f * xm * (grad_abs(P, lev0, rxp) -
-                                  grad_abs(P, lev0, rxm));
-  const float dady = 0.5f * ym * (grad_abs(P, lev0, ryp) -
-                                  grad_abs(P, lev0, rym));
-  const bool nonzero = a_c != 0.0f;
-  const float ainv = 1.0f / (nonzero ? a_c : 1.0f);
-  const float dtdxa = 0.5f * xm * dtx * ainv;
-  const float dtdya = 0.5f * ym * dty * ainv;
-  ov[11 * n3] = -(dadx * dtdxa + dady * dtdya);
+    o[7 * P.n3] = 0.5f * xm * (__ldg(vf + r + 1) - __ldg(vf + r - 1)) -
+                  0.5f * ym * (__ldg(uf + r + nx) - __ldg(uf + r - nx));
+    o[8 * P.n3] = 0.5f * xm * (__ldg(uf + r + 1) - __ldg(uf + r - 1)) +
+                  0.5f * ym * (__ldg(vf + r + nx) - __ldg(vf + r - nx));
+    o[9 * P.n3] = (__ldg(uf + r) * 0.5f * xm * dtx +
+                   __ldg(vf + r) * 0.5f * ym * dty) * kAdvScale;
 
-  if (kAllDefined) {
-    om[0] = ok;
-    om[n3] = nonzero;
-    return;
+    // ---- |grad T| (filled) and TFP --------------------------------------
+    // filled |grad T| at the 4 neighbours = raw at their clamped points
+    const int cxm = max(cx - 1, 1), cxp = min(cx + 1, nx - 2);
+    const int cym = max(cy - 1, 1), cyp = min(cy + 1, ny - 2);
+    const int hc = (cy - wy) * kHaloX + (cx - wx);
+    const int hxm = hc + cxm - cx, hxp = hc + cxp - cx;
+    const int hym = hc + (cym - cy) * kHaloX, hyp = hc + (cyp - cy) * kHaloX;
+    const float a_c = s_grad[hc];
+    bool g_c = true, g_ring = true;
+    if (!kAllDefined) {
+      g_c = s_gate[hc];
+      g_ring = s_gate[hxm] && s_gate[hxp] && s_gate[hym] && s_gate[hyp];
+    }
+    o[10 * P.n3] = a_c;
+    const float dadx = 0.5f * xm * (s_grad[hxp] - s_grad[hxm]);
+    const float dady = 0.5f * ym * (s_grad[hyp] - s_grad[hym]);
+    const bool nonzero = a_c != 0.0f;
+    const float ainv = 1.0f / (nonzero ? a_c : 1.0f);
+    const float dtdxa = 0.5f * xm * dtx * ainv;
+    const float dtdya = 0.5f * ym * dty * ainv;
+    o[11 * P.n3] = -(dadx * dtdxa + dady * dtdya);
+
+    if (kAllDefined) {
+      m[0] = ok;
+      m[P.n3] = nonzero;
+    } else {
+      const bool vort_m = __ldg(vm + r - 1) && __ldg(vm + r + 1) &&
+                          __ldg(um + r - nx) && __ldg(um + r + nx);
+      m[0 * P.n3] = psm;
+      m[1 * P.n3] = tkd && psm;
+      m[2 * P.n3] = tkd && qd && ok;
+      m[3 * P.n3] = tkd && qd && psm;
+      m[4 * P.n3] = ud && vd;
+      m[5 * P.n3] = vort_m;   // also divergence's mask (reference quirk)
+      m[6 * P.n3] = __ldg(um + r) && __ldg(vm + r) && g_c;
+      m[7 * P.n3] = g_c;
+      m[8 * P.n3] = g_c && nonzero && g_ring;
+    }
   }
-  const uint8_t* tkm_l = P.tkm + lev0;
-  const uint8_t* um_l = P.um + lev0;
-  const uint8_t* vm_l = P.vm + lev0;
-  const bool vort_m = __ldg(vm_l + r - 1) && __ldg(vm_l + r + 1) &&
-                      __ldg(um_l + r - nx) && __ldg(um_l + r + nx);
-  const bool gt_m = ring4(tkm_l, r, nx);
-  om[0 * n3] = psm;
-  om[1 * n3] = tkm && psm;
-  om[2 * n3] = tkm && qm && ok;
-  om[3 * n3] = tkm && qm && psm;
-  om[4 * n3] = um && vm;
-  om[5 * n3] = vort_m;   // also divergence's mask (reference quirk)
-  om[6 * n3] = __ldg(um_l + r) && __ldg(vm_l + r) && gt_m;
-  om[7 * n3] = gt_m;
-  om[8 * n3] = gt_m && nonzero && ring4(tkm_l, rxm, nx) &&
-               ring4(tkm_l, rxp, nx) && ring4(tkm_l, rym, nx) &&
-               ring4(tkm_l, ryp, nx);
 }
 
 }  // namespace
@@ -197,19 +254,20 @@ int mf_derived_fields(const float* tk, const float* q, const float* u,
                       const float* ymapr, float* out_values,
                       uint8_t* out_masks, int nlev, int ny, int nx,
                       int all_defined, void* stream) {
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
   if (nlev < 1 || nlev > 65535 || ny < 3 || nx < 3 ||
-      (ny + 7) / 8 > 65535) {
+      (ny + kTileY - 1) / kTileY > 65535 || plane > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params P{tk, q, u, v, tkm, qm, um, vm, ps, psm, alevel, blevel,
-                 xmapr, ymapr, out_values, out_masks, nlev, ny, nx};
-  const dim3 block(32, 8);
-  const dim3 grid((nx + 31) / 32, (ny + 7) / 8, nlev);
+                 xmapr, ymapr, out_values, out_masks, ny, nx, plane * nlev};
+  const dim3 grid((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY,
+                  nlev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (all_defined) {
-    derived_fields_kernel<true><<<grid, block, 0, s>>>(P);
+    derived_fields_kernel<true><<<grid, kThreads, 0, s>>>(P);
   } else {
-    derived_fields_kernel<false><<<grid, block, 0, s>>>(P);
+    derived_fields_kernel<false><<<grid, kThreads, 0, s>>>(P);
   }
   return static_cast<int>(cudaGetLastError());
 }

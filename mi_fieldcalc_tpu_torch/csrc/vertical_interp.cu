@@ -21,19 +21,45 @@
 // - a target with no bracket gives 0, masked (every target, on a single
 //   level).
 //
-// What bounds it: device-memory bytes, and not many of them.  A column
-// reads ps, its own bracket levels (2 values + 2 mask bytes per field and
-// target) and writes nvar * nt values and masks; the level loop is a
-// multiply, an add and two compares per level and target, on a and b
-// held in shared memory.
+// What bounds it: device-memory bytes, and not many of them, once the
+// bracket is found without a walk.  A column reads ps, its own bracket
+// levels (2 values + 2 mask bytes per field and target) and writes
+// nvar * nt values and masks.  The first design walked all nlev - 1 level
+// pairs for every column and target (~1.0e9 pair steps at BASELINE config
+// 4, 137 levels -> 11 targets over 719x929, each two shared-memory loads,
+// a multiply, an add and two compares): that walk, not the bytes, set its
+// time.
 //
-// Design (the first, simple version): one thread per (y, x) column,
-// 256-thread blocks over the flattened plane.  Targets are the outer loop,
-// so no nvar x nt accumulators sit in registers; for each target the
-// thread walks all level pairs to find the last bracket, then reads only
-// the two bracket levels of each field.  Neighbouring threads hold
-// neighbouring columns, so every read and write is coalesced where
-// neighbouring columns share a bracket.
+// Design:
+// - one thread per (y, x) column, 256-thread blocks over the flattened
+//   plane; targets are the outer loop, so no nvar x nt accumulators sit in
+//   registers; neighbouring threads hold neighbouring columns, so every
+//   read and write is coalesced where neighbouring columns share a bracket;
+// - each block copies a, b and the targets into shared memory and checks
+//   there, with one block vote, that a and b are finite and non-decreasing;
+// - on such levels, a column whose ps is finite and >= 0 has
+//   non-decreasing p_k = fl(a_k + fl(b_k * ps)) (b_k * ps is non-decreasing
+//   in k, rounding is monotone, and a finite a_k and b_k give no NaN), so
+//   "p_k <= t" holds on a prefix of the levels and at most one k has
+//   p_k <= t < p_{k+1}: the last prefix level, if the next one exists and
+//   lies above t.  A binary search of ceil(log2(nlev + 1)) steps finds the
+//   prefix's length, and the bracket is the same k the walk finds;
+// - every other column (ps NaN, infinite or negative), and every column
+//   of a launch whose a or b fails the vote, walks all level pairs and
+//   keeps the last bracket, as the rule says.  Both paths evaluate p_k with
+//   the same two operations, so they agree wherever both apply;
+// - ln t of each target is taken once per block, into shared memory;
+// - every phase is a block-stride loop, so the source also runs on the
+//   host with one thread per block (tests/test_torch_vertical_host.py).
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --interp-times,
+// the launch alone, 3 pairs against the walk): config 4, random ps,
+// masked 0.3172-0.3225 ms against 0.4159-0.4861; on a smooth ps of the
+// same range 0.2468-0.2525 against 0.4068-0.4266 (bytes moved once: 0.1326
+// ms at 3.35 TB/s).  What is left is mostly the bracket gathers: on the
+// random ps the 32 columns of a warp bracket a near-surface target at up
+// to ~8 levels, so their loads touch several times the sectors they use.
+// Loading a group of 4 or 8 targets' brackets before their stores, and
+// streaming (evict-first) stores, were measured and were slower.
 
 #include "common.cuh"
 
@@ -42,6 +68,7 @@ namespace {
 constexpr int kMaxVar = 31;      // the packed variant's limit (JAX)
 constexpr int kMaxLev = 4096;    // a, b and the targets in shared memory
 constexpr int kMaxTargets = 1024;
+constexpr int kBlock = 256;      // columns (and threads) a block
 
 struct InterpParams {
   const float* f[kMaxVar];
@@ -61,68 +88,107 @@ __device__ __forceinline__ float level_x(float p, bool log_p) {
   return log_p ? log_f32(p > 0.0f ? p : 1.0f) : p;
 }
 
+// The last k with p_k <= xt < p_{k+1}, or -1: every level pair in turn.
+__device__ __forceinline__ int bracket_walk(const float* s_a,
+                                            const float* s_b, int nlev,
+                                            float ps, float xt) {
+  int kb = -1;
+  float p_k = s_a[0] + s_b[0] * ps;
+  for (int k = 0; k + 1 < nlev; ++k) {
+    const float p_k1 = s_a[k + 1] + s_b[k + 1] * ps;
+    if (p_k <= xt && p_k1 > xt) kb = k;
+    p_k = p_k1;
+  }
+  return kb;
+}
+
+// The same k on a column whose p_k does not decrease: the length of the
+// prefix of levels with p_k <= xt (steps of top, top/2, ..., 1; top the
+// largest power of two <= nlev), then the bracket below the first level
+// above xt.
+__device__ __forceinline__ int bracket_search(const float* s_a,
+                                              const float* s_b, int nlev,
+                                              int top, float ps, float xt) {
+  int cnt = 0;
+  for (int step = top; step >= 1; step >>= 1) {
+    const int k = cnt + step - 1;
+    if (k < nlev && s_a[k] + s_b[k] * ps <= xt) cnt += step;
+  }
+  if (cnt < 1 || cnt >= nlev) return -1;
+  return s_a[cnt] + s_b[cnt] * ps > xt ? cnt - 1 : -1;
+}
+
 template <bool kAllDefined, bool kLogP>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kBlock)
 interp_kernel(const InterpParams P) {
-  extern __shared__ float s_coef[];        // a[nlev], b[nlev], targets[nt]
-  float* s_a = s_coef;
-  float* s_b = s_coef + P.nlev;
-  float* s_t = s_coef + 2 * P.nlev;
+  // a[nlev], b[nlev], the targets and their x (ln t or t) in shared memory
+  float* s_a = dynamic_shared<float>();
+  float* s_b = s_a + P.nlev;
+  float* s_t = s_b + P.nlev;
+  float* s_xt = s_t + P.nt;
+  bool sorted = true;           // a and b finite and non-decreasing
   for (int k = threadIdx.x; k < P.nlev; k += blockDim.x) {
-    s_a[k] = P.alevel[k];
-    s_b[k] = P.blevel[k];
+    const float a = P.alevel[k];
+    const float b = P.blevel[k];
+    s_a[k] = a;
+    s_b[k] = b;
+    sorted = sorted && isfinite(a) && isfinite(b) &&
+             (k == 0 || (P.alevel[k - 1] <= a && P.blevel[k - 1] <= b));
   }
   for (int t = threadIdx.x; t < P.nt; t += blockDim.x) {
     s_t[t] = P.targets[t];
+    s_xt[t] = kLogP ? log_f32(P.targets[t]) : P.targets[t];
   }
-  __syncthreads();
+  const bool search = __syncthreads_and(sorted);
+  int top = 1;
+  while (2 * top <= P.nlev) top *= 2;
 
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= P.plane) return;
-  const float ps = __ldg(P.ps + i);
-  const bool psm = kAllDefined ? true : __ldg(P.psm + i) != 0;
-  const int64_t n_out = P.plane * P.nt;     // one output field
+  // the block's kBlock columns, one a thread on the card
+  const int64_t end =
+      min(P.plane, static_cast<int64_t>(blockIdx.x + 1) * kBlock);
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+       i < end; i += blockDim.x) {
+    const float ps = __ldg(P.ps + i);
+    const bool psm = kAllDefined ? true : __ldg(P.psm + i) != 0;
+    // finite and >= 0 (NaN fails both compares)
+    const bool monotone = search && ps >= 0.0f && ps <= 0x1.fffffep+127f;
+    const int64_t n_out = P.plane * P.nt;     // one output field
 
-  for (int t = 0; t < P.nt; ++t) {
-    const float xt = s_t[t];
-    int kb = -1;
-    float p_k = s_a[0] + s_b[0] * ps;
-    for (int k = 0; k + 1 < P.nlev; ++k) {
-      const float p_k1 = s_a[k + 1] + s_b[k + 1] * ps;
-      if (p_k <= xt && p_k1 > xt) kb = k;
-      p_k = p_k1;
-    }
-    const int64_t o = static_cast<int64_t>(t) * P.plane + i;
-    if (kb < 0) {
-      for (int v = 0; v < P.nvar; ++v) P.out_values[v * n_out + o] = 0.0f;
-      if (kAllDefined) {
-        P.out_masks[o] = 0;
-      } else {
-        for (int v = 0; v < P.nvar; ++v) P.out_masks[v * n_out + o] = 0;
+    for (int t = 0; t < P.nt; ++t) {
+      const float xt = s_t[t];
+      const int kb =
+          monotone ? bracket_search(s_a, s_b, P.nlev, top, ps, xt)
+                   : bracket_walk(s_a, s_b, P.nlev, ps, xt);
+      const int64_t o = static_cast<int64_t>(t) * P.plane + i;
+      if (kb < 0) {
+        for (int v = 0; v < P.nvar; ++v) P.out_values[v * n_out + o] = 0.0f;
+        if (kAllDefined) {
+          P.out_masks[o] = 0;
+        } else {
+          for (int v = 0; v < P.nvar; ++v) P.out_masks[v * n_out + o] = 0;
+        }
+        continue;
       }
-      continue;
-    }
-    const float x0 = level_x(s_a[kb] + s_b[kb] * ps, kLogP);
-    const float x1 = level_x(s_a[kb + 1] + s_b[kb + 1] * ps, kLogP);
-    const float denom = x1 - x0;
-    const bool ok = denom != 0.0f;
-    const float dinv = 1.0f / (ok ? denom : 1.0f);
-    const float lxt = kLogP ? log_f32(xt) : xt;
-    const float w = (lxt - x0) * dinv;
-    const int64_t i0 = static_cast<int64_t>(kb) * P.plane + i;
-    const int64_t i1 = i0 + P.plane;
-    for (int v = 0; v < P.nvar; ++v) {
-      const float f0 = __ldg(P.f[v] + i0);
-      const float f1 = __ldg(P.f[v] + i1);
-      P.out_values[v * n_out + o] = f0 + (f1 - f0) * w;
-      if (!kAllDefined) {
-        P.out_masks[v * n_out + o] =
-            (__ldg(P.fm[v] + i0) && __ldg(P.fm[v] + i1) && ok && psm) ? 1
-                                                                      : 0;
+      const float x0 = level_x(s_a[kb] + s_b[kb] * ps, kLogP);
+      const float x1 = level_x(s_a[kb + 1] + s_b[kb + 1] * ps, kLogP);
+      const float denom = x1 - x0;
+      const bool ok = denom != 0.0f;
+      const float dinv = 1.0f / (ok ? denom : 1.0f);
+      const float w = (s_xt[t] - x0) * dinv;
+      const int64_t i0 = static_cast<int64_t>(kb) * P.plane + i;
+      const int64_t i1 = i0 + P.plane;
+      for (int v = 0; v < P.nvar; ++v) {
+        const float f0 = __ldg(P.f[v] + i0);
+        const float f1 = __ldg(P.f[v] + i1);
+        P.out_values[v * n_out + o] = f0 + (f1 - f0) * w;
+        if (!kAllDefined) {
+          P.out_masks[v * n_out + o] =
+              (__ldg(P.fm[v] + i0) && __ldg(P.fm[v] + i1) && ok && psm) ? 1
+                                                                        : 0;
+        }
       }
+      if (kAllDefined) P.out_masks[o] = ok ? 1 : 0;
     }
-    if (kAllDefined) P.out_masks[o] = ok ? 1 : 0;
   }
 }
 
@@ -162,22 +228,21 @@ int mf_vertical_interp(const float* const* fvals,
   P.nt = nt;
   P.nlev = nlev;
   P.plane = static_cast<int64_t>(ny) * nx;
-  const int block = 256;
-  const int64_t grid = (P.plane + block - 1) / block;
+  const int64_t grid = (P.plane + kBlock - 1) / kBlock;
   if (grid > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(nlev) + nt);
+  const size_t smem = sizeof(float) * 2 * (static_cast<size_t>(nlev) + nt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g(static_cast<unsigned>(grid));
   if (all_defined) {
     if (log_p) {
-      interp_kernel<true, true><<<g, block, smem, s>>>(P);
+      interp_kernel<true, true><<<g, kBlock, smem, s>>>(P);
     } else {
-      interp_kernel<true, false><<<g, block, smem, s>>>(P);
+      interp_kernel<true, false><<<g, kBlock, smem, s>>>(P);
     }
   } else if (log_p) {
-    interp_kernel<false, true><<<g, block, smem, s>>>(P);
+    interp_kernel<false, true><<<g, kBlock, smem, s>>>(P);
   } else {
-    interp_kernel<false, false><<<g, block, smem, s>>>(P);
+    interp_kernel<false, false><<<g, kBlock, smem, s>>>(P);
   }
   return static_cast<int>(cudaGetLastError());
 }

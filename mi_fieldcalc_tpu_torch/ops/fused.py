@@ -30,15 +30,18 @@ __all__ = ["derived_fields_fused", "derived_fields_plain", "fused_supported"]
 #: the field whose mask each plane of the 9- and 2-plane stacks holds
 _PLANE_FIELDS9 = tuple(DerivedFieldsStacked.MASK9.index(k) for k in range(9))
 _PLANE_FIELDS2 = tuple(DerivedFieldsStacked.MASK2.index(k) for k in range(2))
-#: the CUDA grid's limits: gridDim.y = ceil(ny/8), gridDim.z = nlev
-_MAX_NY = 8 * 65535
+#: the kernel's limits (csrc/derived_fields.cu): gridDim.y = ceil(ny/4)
+#: tiles of 4 rows, 32-bit offsets inside a level plane, gridDim.z = nlev
+_MAX_NY = 4 * 65535
+_MAX_PLANE = 2**31 - 1
 _MAX_NLEV = 65535
 
 
 def fused_supported(ny: int, nx: int) -> bool:
     """Whether the kernel covers this grid: at least 3x3 as in the
-    reference, and ``ny`` within the CUDA grid's y limit."""
-    return 3 <= ny <= _MAX_NY and nx >= 3
+    reference, ``ny`` within the CUDA grid's y limit and a plane within
+    the kernel's 32-bit offsets."""
+    return 3 <= ny <= _MAX_NY and nx >= 3 and ny * nx <= _MAX_PLANE
 
 
 def derived_fields_plain(tk: Field, q: Field, u: Field, v: Field, ps: Field,

@@ -4,7 +4,8 @@ A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
 C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
 ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
 ``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``
-is a plain add, ``__int_as_float`` is a ``memcpy``, and each
+is a plain add, ``__int_as_float`` is a ``memcpy``, ``common.cuh``'s
+``dynamic_shared<T>()`` is one static 1 MiB buffer, and each
 ``<<<grid, block>>>`` launch becomes a host loop over ``blockIdx`` (z, y,
 then x) that runs each block as one thread (``blockDim`` = 1 in every
 dimension).  That is right
@@ -77,6 +78,14 @@ static inline int __float_as_int(float f) {
   return i;
 }
 template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline const char* cudaGetErrorString(int) { return "host error"; }
+// common.cuh's dynamic shared memory: one static buffer (blocks run one
+// after the other)
+#define MF_HOST_SHIM 1
+alignas(16) static unsigned char mf_host_dynamic_smem[1 << 20];
+template <class T> static inline T* dynamic_shared() {
+  return reinterpret_cast<T*>(mf_host_dynamic_smem);
+}
 using std::min;
 using std::max;
 template <class K, class P>

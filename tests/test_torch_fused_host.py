@@ -1,0 +1,171 @@
+"""The pipeline kernel's source, compiled for the host CPU, against its plain
+version, bit for bit.
+
+``csrc/derived_fields.cu`` (B1 ``mf_derived_fields``, with
+``csrc/common.cuh``) is compiled by g++ through the stand-in
+``cuda_runtime.h`` of ``cuda_host.py``, which runs each block of the grid
+(a 64x4 tile of a level) as one thread: the kernel's phases are
+block-stride loops (|grad T| and its gate on the tile's window of clamped
+points into shared memory, then the tile's points), so one thread covers
+its block's tile point after point.  With ``-ffp-contract=off`` every
+float operation rounds on its own, as the card's ``-fmad=false`` build
+does, so the outputs can be held to ``derived_fields_plain``: masks equal
+and values equal bit for bit at every point, NaN where NaN.  PyTorch's CPU
+``sqrt`` is not correctly rounded (the card's is, and so is the host
+``sqrtf``), so the plain version runs with a correctly rounded one.  The
+card checks the same equality (``chip_smoke.py`` phases 3-5, 7 and 10)."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from cuda_host import host_library
+from mi_fieldcalc_tpu_torch.field import from_sentinel
+from mi_fieldcalc_tpu_torch.models.pipeline import DerivedFieldsStacked
+from mi_fieldcalc_tpu_torch.ops import fused
+
+torch.set_num_threads(1)
+
+#: the 3x3 minimum; ragged planes: 5x929 (15 tiles a row, the last 33
+#: columns wide; a second tile row of one grid row, whose clamped point
+#: lies in the tile above) and 37x61 (tiles narrower than 64 and a last
+#: tile row of one grid row); a plane under one tile; and 33x135
+SHAPES = [(1, 3, 3), (3, 37, 61), (2, 5, 929), (2, 33, 135), (1, 4, 5)]
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = host_library(tmp_path_factory, "derived_fields.cu", 2)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mf_derived_fields.argtypes = [p] * 16 + [i, i, i, i, p]
+    lib.mf_derived_fields.restype = i
+    return lib
+
+
+@pytest.fixture
+def exact_sqrt(monkeypatch):
+    """A correctly rounded float32 sqrt (through float64), as the card's."""
+    sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda x: sqrt(x.double()).float())
+
+
+def _inputs(nlev, ny, nx, seed, undefs):
+    """``chip_smoke.make_inputs``'s scattered pattern (undefined points at
+    ~1/37 of each stack, two corners, a 500 K point, an undefined ps
+    point), and with ``undefs`` more at the edges: every corner of every
+    level in u, v and q, the first and last row of tk on level 0, the
+    first and last column of v, a point next to three corners (a clamped
+    neighbour of the edge points) in tk, and ps at a corner and an edge."""
+    raw = list(chip_smoke.make_inputs(nlev, ny, nx, seed, undefs))
+    if undefs:
+        tk, q, u, v, ps = raw[:5]
+        for a in (u, v, q):
+            a[:, [0, 0, -1, -1], [0, -1, 0, -1]] = 1e35
+        tk[0, [0, -1], :] = 1e35
+        v[:, :, [0, -1]] = 1e35
+        tk[:, [1, -2, -2], [-2, 1, -2]] = 1e35
+        ps[0, -1] = 1e35
+        ps[-1, nx // 2] = 1e35
+    return raw
+
+
+def _args(raw, all_defined):
+    fields = tuple(from_sentinel(a) for a in raw[:5])
+    if all_defined:
+        fields = tuple(type(f)(f.values, torch.ones_like(f.mask))
+                       for f in fields)
+    return fields + tuple(torch.from_numpy(a) for a in raw[5:])
+
+
+def _host_fused(lib, args, all_defined) -> DerivedFieldsStacked:
+    """One host launch of B1, arguments as the wrapper (``fused._launch``)
+    passes them."""
+    tk, q, u, v, ps, al, bl, xm, ym, _ = args
+    nlev, ny, nx = tk.values.shape
+    values = torch.empty((12, nlev, ny, nx), dtype=torch.float32)
+    masks = torch.empty((2 if all_defined else 9, nlev, ny, nx),
+                        dtype=torch.bool)
+
+    def mptr(f):
+        return None if all_defined else f.mask.data_ptr()
+
+    err = lib.mf_derived_fields(
+        tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
+        v.values.data_ptr(), mptr(tk), mptr(q), mptr(u), mptr(v),
+        ps.values.data_ptr(), mptr(ps), al.data_ptr(), bl.data_ptr(),
+        xm.data_ptr(), ym.data_ptr(), values.data_ptr(), masks.data_ptr(),
+        nlev, ny, nx, int(all_defined), None)
+    assert err == 0
+    return DerivedFieldsStacked(values, masks)
+
+
+def _assert_same(got, ref, label):
+    """Masks equal; values equal bit for bit at every point, NaN where
+    NaN."""
+    assert torch.equal(got.masks, ref.masks), (
+        label, int((got.masks != ref.masks).sum()))
+    g, r = got.values, ref.values
+    same = (g.view(torch.int32) == r.view(torch.int32)) | (
+        torch.isnan(g) & torch.isnan(r))
+    bad = [int((~same[k]).sum()) for k in range(12)]
+    assert not any(bad), (label, bad)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("all_defined", [False, True])
+def test_host_fused_matches_plain(host_lib, exact_sqrt, shape, all_defined):
+    raw = _inputs(*shape, seed=sum(shape), undefs=not all_defined)
+    args = _args(raw, all_defined)
+    got = _host_fused(host_lib, args, all_defined)
+    ref = fused.derived_fields_plain(*args, all_defined=all_defined)
+    _assert_same(got, ref, (shape, all_defined))
+
+
+def test_host_fused_writes_only_its_planes(host_lib, exact_sqrt):
+    """Output planes that are views into larger buffers at odd offsets:
+    the values land where the plain version puts them, and nothing before
+    or after the 12 value and 9 mask planes is written."""
+    shape = (3, 7, 41)
+    raw = _inputs(*shape, seed=7, undefs=True)
+    args = _args(raw, False)
+    ref = fused.derived_fields_plain(*args)
+    tk, q, u, v, ps, al, bl, xm, ym, _ = args
+    n = int(np.prod(shape))
+    vbuf = torch.full((12 * n + 8,), 7.0)
+    mbuf = torch.full((9 * n + 8,), 3, dtype=torch.uint8)
+    err = host_lib.mf_derived_fields(
+        tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
+        v.values.data_ptr(), tk.mask.data_ptr(), q.mask.data_ptr(),
+        u.mask.data_ptr(), v.mask.data_ptr(), ps.values.data_ptr(),
+        ps.mask.data_ptr(), al.data_ptr(), bl.data_ptr(), xm.data_ptr(),
+        ym.data_ptr(), vbuf[3:].data_ptr(), mbuf[5:].data_ptr(), *shape, 0,
+        None)
+    assert err == 0
+    got = DerivedFieldsStacked(vbuf[3:3 + 12 * n].reshape(12, *shape),
+                               mbuf[5:5 + 9 * n].reshape(9, *shape).bool())
+    _assert_same(got, ref, "views")
+    assert bool((vbuf[:3] == 7.0).all()) and bool((vbuf[-5:] == 7.0).all())
+    assert bool((mbuf[:5] == 3).all()) and bool((mbuf[-3:] == 3).all())
+
+
+def test_host_fused_planted_points_reach_every_branch(host_lib, exact_sqrt):
+    """The planted points do what the test above relies on: masked-out
+    edges and corners, an undefined ps, a 500 K point off the table, and
+    on the all-defined route a zero |grad T| gate."""
+    shape = (2, 37, 61)
+    raw = _inputs(*shape, seed=3, undefs=True)
+    out = _host_fused(host_lib, _args(raw, False), False)
+    m = out.masks
+    assert not bool(m[4, 0, 0, 0])              # wind speed: u, v corner
+    assert not bool(m[1, :, 0, -1].any())       # theta: ps undefined
+    assert not bool(m[2, 0, 1, 1])              # 500 K is off the table
+    assert not bool(m[7, 0, 0, :].any())        # |grad T| on an undef row
+    assert bool(m[8].any()) and not bool(m[8].all())
+    flat = list(raw)
+    flat[0] = np.full(shape, 280.0, np.float32)  # a flat T: |grad T| == 0
+    out = _host_fused(host_lib, _args(flat, True), True)
+    assert not bool(out.masks[1].any())
+    assert bool(out.masks[0].all())
