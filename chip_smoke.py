@@ -71,7 +71,26 @@ Phases (any failure raises and exits non-zero):
    ``utils.profiling.trace``: the device's busy share of the request and
    B1 found in the trace by name (or, where the trace holds no device
    events, the share from CUDA events around H2D, kernel and D2H, and a
-   line that says so).
+   line that says so);
+11. the operator surface (plain PyTorch on the card): every small golden
+   (``tests/goldens/goldens.npz``, 180 cases) and the large ones but
+   phase 9's ModStall (4 at 719x929) through the port on ``cuda:0``
+   (``tests/torch_conformance.py``), each under its case's own contract
+   (mask exact where ``mask_exact``, values within the case's rtol /
+   atol), the pass count printed; BASELINE config 1
+   (``derived_fields_plevel`` at 96x128 and 719x929, 2% undefined) and
+   config 3 (the 8-field stencil set at 721x1440, 0.5% undefined), each
+   output held to the port on the CPU on the same inputs (masks bitwise,
+   values within RTOL) and timed (CUDA events, median of 10); and the
+   ensemble model, ``ensemble_derived_summary(fused=True)`` at 8 members x
+   32 levels x 719x929 (each member the headline's inputs from its own
+   seed): B1's launch count zeroed before and read after (it must rise by
+   exactly 8), each member's B1 output bit for bit equal to
+   ``derived_fields_plain``, the summary equal to the ``fused=False``
+   route's (masks bitwise, defined values bit for bit), then its time
+   split into the 8 launches, the member stack and the reductions, and
+   ``torch.cuda.max_memory_allocated``.  The kernels line lists B1 a
+   second time for this path (``"path": "ensemble_derived_summary"``).
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -2169,6 +2188,284 @@ def phase_request_trace(dev, smi: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 11
+#: BASELINE config 1 (tools/baseline_configs.py:57-77) at its own 96x128
+#: and at the 719x929 AROME grid, and config 3 (:177-206) on the global
+#: 0.25 degree grid
+CONFIG1_SHAPES = ((96, 128), (719, 929))
+CONFIG3_SHAPE = (721, 1440)
+#: the ensemble model: members x levels x the AROME grid
+ENSEMBLE_SHAPE = (8, 32, 719, 929)
+#: phase 9 replays this large golden through the icing kernels
+ICING_LARGE_GOLDEN = "large_vesselIcingModStall"
+
+
+def _golden_modules():
+    """The golden cases and the port's adapter (``tests/``), numpy and the
+    port only."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import conformance_cases
+    import torch_conformance
+    return conformance_cases, torch_conformance
+
+
+def phase_goldens(dev) -> dict:
+    """Every small golden and the large ones but phase 9's through the
+    port on the card, each under its case's own contract (mask exact where
+    ``mask_exact``, values within the case's rtol / atol)."""
+    import torch
+    cc, tc = _golden_modules()
+    goldens = np.load(ROOT / "tests" / "goldens" / "goldens.npz")
+    large = np.load(ROOT / "tests" / "goldens" / "goldens_large.npz")
+    t0 = time.perf_counter()
+    passed, failed = {"small": 0, "large": 0}, []
+    for kind, cases, store in (
+            ("small", cc.CASES, goldens),
+            ("large", [c for c in cc.LARGE_CASES
+                       if c.name != ICING_LARGE_GOLDEN], large)):
+        for case in cases:
+            try:
+                out = tc.port_case(case, cc.case_inputs(case), device=dev)
+                for key, field in tc.outputs(case, out):
+                    if field.values.device != dev:
+                        raise AssertionError(f"{key} on "
+                                             f"{field.values.device}")
+                    tc.check(case, field, store[key])
+                passed[kind] += 1
+            except Exception as e:  # noqa: BLE001  (every failure listed)
+                failed.append(f"{case.name}: {type(e).__name__}: "
+                              f"{str(e).splitlines()[0] if str(e) else ''}")
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    n_small, n_large = len(cc.CASES), len(cc.LARGE_CASES) - 1
+    log(f"goldens on the card: {passed['small']} of {n_small} small and "
+        f"{passed['large']} of {n_large} large pass ({secs:.1f} s)")
+    if failed:
+        for line in failed:
+            log("  golden failed: " + line)
+        raise AssertionError(f"{len(failed)} goldens failed on the card")
+    return {**passed, "cases_small": n_small, "cases_large": n_large,
+            "seconds": secs}
+
+
+def config1_inputs(ny, nx, seed):
+    """Config 1's fields (T 250-300 K and q 1e-4-1e-2 with 2% undefined,
+    as tools/baseline_configs.py:62-64) and winds of config 3's range with
+    the same share, on 850 hPa; map factors and coriolis of config 3."""
+    rng = np.random.default_rng(seed)
+    fields = (sentinel(rng, 250.0, 300.0, (ny, nx), 0.02),
+              sentinel(rng, 1e-4, 1e-2, (ny, nx), 0.02),
+              sentinel(rng, -30.0, 30.0, (ny, nx), 0.02),
+              sentinel(rng, -30.0, 30.0, (ny, nx), 0.02))
+    maps = (np.full((ny, nx), 4e-6, np.float32),) * 2 + (
+        np.full((ny, nx), 1.2e-4, np.float32),)
+    return fields, maps
+
+
+def config3_inputs(seed=2):
+    """Config 3's fields (tools/baseline_configs.py:181-189): z, u, v and
+    T with 0.5% undefined, constant map factors and coriolis."""
+    rng = np.random.default_rng(seed)
+    shape = CONFIG3_SHAPE
+    fields = (sentinel(rng, 4800.0, 5900.0, shape, 0.005),
+              sentinel(rng, -30.0, 30.0, shape, 0.005),
+              sentinel(rng, -30.0, 30.0, shape, 0.005),
+              sentinel(rng, 250.0, 300.0, shape, 0.005))
+    maps = (np.full(shape, 4e-6, np.float32),) * 2 + (
+        np.full(shape, 1.2e-4, np.float32),)
+    return fields, maps
+
+
+def config1_step(fields, maps):
+    """Config 1 on the port: ``derived_fields_plevel`` at 850 hPa."""
+    from mi_fieldcalc_tpu_torch.models import derived_fields_plevel
+    tk, q, u, v = fields
+    return derived_fields_plevel(tk, q, u, v, 850.0, *maps)
+
+
+def config3_step(fields, maps):
+    """Config 3's 8-field stencil set: geostrophic wind x / y, vorticity,
+    divergence and gradient modes 1-4."""
+    from mi_fieldcalc_tpu_torch import ops
+    z, u, v, tk = fields
+    xm, ym, fc = maps
+    outs = [ops.plevelgwind_xcomp(z, xm, ym, fc),
+            ops.plevelgwind_ycomp(z, xm, ym, fc),
+            ops.relvort(u, v, xm, ym), ops.divergence(u, v, xm, ym)]
+    outs += [ops.gradient(tk, xm, ym, compute=c) for c in (1, 2, 3, 4)]
+    return dict(zip(("gwind_x", "gwind_y", "vort", "div", "dfdx", "dfdy",
+                     "gradt", "laplacian"), outs))
+
+
+def phase_configs(dev, smi: str, reps=10) -> dict:
+    """BASELINE configs 1 and 3 on the card, each output held to the port
+    on the CPU on the same inputs (masks bitwise, values within RTOL: the
+    card's sqrt is correctly rounded, PyTorch's CPU one is not), then
+    timed (CUDA events, median of ``reps``)."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    res = {"card": smi}
+    cases = [(f"config1_{ny}x{nx}", config1_step,
+              config1_inputs(ny, nx, seed=ny)) for ny, nx in CONFIG1_SHAPES]
+    cases.append(("config3_{}x{}".format(*CONFIG3_SHAPE), config3_step,
+                  config3_inputs()))
+    for label, step, (fields, maps) in cases:
+        def on(device):
+            return ([from_sentinel(a, device=device) for a in fields],
+                    [torch.as_tensor(m, device=device) for m in maps])
+        card, cpu = step(*on(dev)), step(*on("cpu"))
+        worst = 0.0
+        for name in card:
+            g, r = card[name], cpu[name]
+            if g.values.device != dev:
+                raise AssertionError(f"{label} {name} on {g.values.device}")
+            worst = max(worst, compare_fields(
+                [type(g)(g.values.cpu(), g.mask.cpu())], [r],
+                f"{label} {name}", defined_only=True))
+            if not bool(g.mask.any()):
+                raise AssertionError(f"{label} {name}: nothing defined")
+        args = on(dev)
+        t = time_ms(lambda: step(*args), reps)
+        res[label] = {"outputs": sorted(card), "max_abs_err_vs_cpu": worst,
+                      "ms": statistics.median(t), "ms_all": t,
+                      "points": int(np.prod(fields[0].shape))}
+        log(f"[{smi}] {label}: {len(card)} outputs == the CPU port "
+            f"(masks bitwise, max abs err {worst:.3g}); median "
+            f"{res[label]['ms']:.4f} ms of {reps}")
+        del card, cpu, args
+    return res
+
+
+def ensemble_inputs(dev):
+    """The ensemble's member stacks on the card: each member the
+    headline's inputs (``make_inputs``, the column pattern) from its own
+    seed; the hybrid coefficients and maps of member 0."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field, from_sentinel
+    nmem, nlev, ny, nx = ENSEMBLE_SHAPE
+    stacks = [Field(torch.empty((nmem,) + shape, dtype=torch.float32,
+                                device=dev),
+                    torch.empty((nmem,) + shape, dtype=torch.bool,
+                                device=dev))
+              for shape in [(nlev, ny, nx)] * 4 + [(ny, nx)]]
+    for m in range(nmem):
+        raw = make_inputs(nlev, ny, nx, 40 + m, True, "column")
+        for stack, a in zip(stacks, raw[:5]):
+            f = from_sentinel(a, device=dev)
+            stack.values[m] = f.values
+            stack.mask[m] = f.mask
+        if m == 0:
+            rest = [torch.as_tensor(a, device=dev) for a in raw[5:]]
+    return stacks + rest
+
+
+def phase_ensemble(dev, smi: str, reps=10) -> dict:
+    """``ensemble_derived_summary(fused=True)`` at ENSEMBLE_SHAPE: B1
+    launched once per member (its count zeroed just before and read just
+    after), each member's stacked output bit for bit equal to
+    ``derived_fields_plain``, the summary equal to the ``fused=False``
+    route's (masks bitwise, values bit for bit); then its time, split into
+    the member launches and the reductions, and its peak memory."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field
+    from mi_fieldcalc_tpu_torch.models import ensemble
+    from mi_fieldcalc_tpu_torch.ops import fused
+    nmem = ENSEMBLE_SHAPE[0]
+    t0 = time.perf_counter()
+    args = ensemble_inputs(dev)
+    t_in = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+
+    fused.derived_fields_fused.launches = 0
+    summ = ensemble.ensemble_derived_summary(*args, fused=True)
+    torch.cuda.synchronize(dev)
+    launches = fused.derived_fields_fused.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"ensemble {'x'.join(map(str, ENSEMBLE_SHAPE))}: B1 launches "
+        f"{launches}; peak {peak / 2**30:.2f} GiB allocated (inputs "
+        f"{base / 2**30:.2f} GiB)")
+    if launches != nmem:
+        raise AssertionError(f"expected {nmem} B1 launches, got {launches}")
+
+    def member(m):
+        return [Field(f.values[m], f.mask[m]) for f in args[:5]] + args[5:]
+
+    for m in range(nmem):
+        errs = compare_stacked(fused.derived_fields_fused(*member(m)),
+                               fused.derived_fields_plain(*member(m)),
+                               f"ensemble member {m}")
+    log(f"ensemble: each of the {nmem} members' B1 output == "
+        f"derived_fields_plain bit for bit (every point: "
+        f"{errs['every_point']})")
+
+    plain = ensemble.ensemble_derived_summary(*args, fused=False)
+    pairs = [(f"mean.{n}", g, r) for n, g, r in zip(NAMES, summ.mean,
+                                                     plain.mean)]
+    pairs += [(f"spread.{n}", g, r) for n, g, r in zip(NAMES, summ.spread,
+                                                       plain.spread)]
+    pairs += [("prob_wind", summ.prob_wind, plain.prob_wind),
+              ("prob_t_freeze", summ.prob_t_freeze, plain.prob_t_freeze)]
+    every = True
+    for label, g, r in pairs:
+        if not torch.equal(g.mask, r.mask):
+            raise AssertionError(f"ensemble {label}: masks differ")
+        if not bool(g.mask.any()):
+            raise AssertionError(f"ensemble {label}: nothing defined")
+        if not bool(same_bits(g.values[g.mask], r.values[r.mask]).all()):
+            raise AssertionError(f"ensemble {label}: defined values not "
+                                 f"bit for bit")
+        every = every and bool(same_bits(g.values, r.values).all())
+        if not bool(torch.isfinite(g.values[g.mask]).any()):
+            raise AssertionError(f"ensemble {label}: no finite value")
+    log(f"ensemble: summary (fused) == summary (fused=False): "
+        f"{len(pairs)} fields, masks bitwise, defined values bit for bit "
+        f"(every point: {every})")
+    del summ, plain
+
+    total = time_ms(lambda: ensemble.ensemble_derived_summary(
+        *args, fused=True), reps)
+    members = [member(m) for m in range(nmem)]
+    b1 = time_ms(lambda: [fused.derived_fields_fused(*a) for a in members],
+                 reps)
+    plain_one = time_ms(lambda: fused.derived_fields_plain(*members[0]), 3)
+    out = ensemble.ensemble_member_fields(*args, fused=True)
+    red = time_ms(lambda: ensemble.ensemble_summary(out), reps)
+    del out
+    plain_total = time_ms(lambda: ensemble.ensemble_derived_summary(
+        *args, fused=False), 3)
+    res = {"card": smi, "shape": list(ENSEMBLE_SHAPE), "launches": launches,
+           "max_abs_err": 0.0, "every_point": every,
+           "inputs_s": t_in, "peak_bytes": peak, "input_bytes": base,
+           "total_ms": statistics.median(total), "total_ms_all": total,
+           "b1_launches_ms": statistics.median(b1), "b1_launches_ms_all": b1,
+           "b1_per_member_ms": statistics.median(b1) / nmem,
+           "plain_member_ms": statistics.median(plain_one),
+           "reductions_ms": statistics.median(red), "reductions_ms_all": red,
+           "plain_total_ms": statistics.median(plain_total)}
+    res["gather_ms"] = (res["total_ms"] - res["b1_launches_ms"]
+                        - res["reductions_ms"])
+    # the reductions' bytes bound: the 12 member stacks (values and masks)
+    # read once, the 26 summary fields written once, at the published rate
+    from mi_fieldcalc_tpu_torch.utils.profiling import device_hbm_gbps
+    pts = int(np.prod(ENSEMBLE_SHAPE[1:]))
+    res["reductions_bytes"] = 12 * nmem * pts * 5 + 26 * pts * 5
+    res["reductions_bound_ms"] = (res["reductions_bytes"]
+                                  / device_hbm_gbps(dev) * 1e3)
+    log(f"[{smi}] ensemble summary (fused) median of {reps}: "
+        f"{res['total_ms']:.3f} ms = {nmem} B1 launches "
+        f"{res['b1_launches_ms']:.3f} ms ({res['b1_per_member_ms']:.4f} ms "
+        f"each) + reductions {res['reductions_ms']:.3f} ms + the member "
+        f"stack {res['gather_ms']:.3f} ms (the reductions' bytes bound "
+        f"{res['reductions_bound_ms']:.3f} ms); fused=False "
+        f"{res['plain_total_ms']:.3f} ms (median of 3); peak "
+        f"{peak / 2**30:.2f} GiB")
+    return res
+
+
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
@@ -2340,6 +2637,10 @@ def main() -> int:
     probe_err = phase_probe_kernels(dev)
     probes = phase_probe_times(dev, smi)
     request_trace = phase_request_trace(dev, smi)
+    log("== phase 11: the operator surface")
+    goldens = phase_goldens(dev)
+    configs = phase_configs(dev, smi)
+    ens = phase_ensemble(dev, smi)
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -2351,7 +2652,9 @@ def main() -> int:
             "kernels": icing_kernels, "path": icing_path,
             "golden": icing_golden, "times": icing_times},
         "probes": {"max_abs_err": probe_err, **probes},
-        "request_trace": request_trace, "wall_s": wall}))
+        "request_trace": request_trace,
+        "surface": {"goldens": goldens, "configs": configs,
+                    "ensemble": ens}, "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -2400,6 +2703,18 @@ def main() -> int:
         "launch_ms": times["masked"]["launch_ms"],
         "plain_ms": times["masked"]["plain_ms"],
         **bounds["derived_fields"],
+    }, {
+        "name": "derived_fields",
+        "path": "ensemble_derived_summary",
+        "route": "cuda",
+        "source": src + "derived_fields.cu",
+        "replaces": ref + "fused.py:301",
+        "launches": ens["launches"],
+        "max_abs_err": ens["max_abs_err"],
+        "ms": ens["b1_per_member_ms"],
+        "plain_ms": ens["plain_member_ms"],
+        **bound(layout_bytes(*ENSEMBLE_SHAPE[1:], False),
+                OPS_B1_POINT * int(np.prod(ENSEMBLE_SHAPE[1:]))),
     }, {
         "name": "vertical_interp",
         "route": "cuda",

@@ -1,21 +1,25 @@
 """mi_fieldcalc_tpu_torch — PyTorch/CUDA port of the derived-field engine.
 
 A second package beside :mod:`mi_fieldcalc_tpu` (the JAX reference, which
-stays as it is).  It serves the 12-output derived-field pipeline, the
-level-conversion suites and the vessel-icing products from sentinel-coded
-numpy in to sentinel-coded numpy out, through hand-written CUDA kernels on
-an NVIDIA H100 (``csrc/*.cu``).
+stays as it is).  It holds the reference's operator surface in plain
+PyTorch, and serves the 12-output derived-field pipeline, the
+level-conversion suites, the ensemble summary and the vessel-icing
+products through hand-written CUDA kernels on an NVIDIA H100
+(``csrc/*.cu``).
 Module names mirror the JAX package, so each counterpart is found by path:
 
 * :mod:`.field` — :class:`Field` (float32 values + bool mask tensors) and
   the sentinel codecs,
 * :mod:`.constants`, :mod:`._libm` — the constants, EWT table and the
   deterministic pow, log, exp and tanh,
-* :mod:`.ops` — the operators in plain PyTorch, and the CUDA kernels'
-  wrappers with their plain versions (:mod:`.ops.fused`,
+* :mod:`.ops` — the ~70 operators in plain PyTorch (levels, thermo,
+  elementwise, stencil, stability, window, ensemble, vertical, icing), and
+  the CUDA kernels' wrappers with their plain versions (:mod:`.ops.fused`,
   :mod:`.ops.vertical_fused`, :mod:`.ops.fused_suite`,
   :mod:`.ops.icing_fused`),
-* :mod:`.models.pipeline` — ``derived_fields`` and the stacked layout,
+* :mod:`.models` — ``derived_fields`` and its stacked layout,
+  ``derived_fields_isobaric``, ``derived_fields_plevel`` and
+  ``ensemble_derived_summary``,
 * :mod:`.native`, :mod:`.staging` — the host codec binding and the
   serving entries (``run_derived_fields_np``, ``run_hlevel_suite_np``,
   :func:`.staging.run_vessel_icing_np`).
@@ -31,6 +35,7 @@ from .field import (  # noqa: F401
     UNDEF, Field, ValuesDefined, defined_state, from_arrays, from_sentinel,
     from_values, full_undef,
 )
+from . import constants, models, ops  # noqa: F401,E402
 from .ops import (  # noqa: F401,E402
     vessel_icing_mertins, vessel_icing_mincog, vessel_icing_mincog_fused,
     vessel_icing_modstall, vessel_icing_modstall_fused,

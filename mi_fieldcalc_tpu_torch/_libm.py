@@ -1,7 +1,9 @@
-"""Deterministic float32 transcendentals: the Exner pow, log, exp and tanh.
+"""Deterministic float32 transcendentals: the Exner pow, log, exp, tanh,
+log10, pow and pow10.
 
-PyTorch port of :func:`mi_fieldcalc_tpu._libm.pow_posc_f32`, ``log_f32``,
-``exp_f32`` and ``tanh_f32``.  They use only
+PyTorch port of :mod:`mi_fieldcalc_tpu._libm` (``pow_posc_f32``,
+``log_f32``, ``exp_f32``, ``tanh_f32``, ``log10_f32``, ``pow_f32`` and
+``pow10_f32``).  They use only
 mul/add/select/int/bitcast, each rounded on its own, so they give the
 bits the JAX package gives (and the CUDA kernels, which are compiled with
 ``-fmad=false`` so no multiply-add is contracted; ``csrc/common.cuh``
@@ -16,12 +18,15 @@ import torch
 
 from .field import f32
 
-__all__ = ["exp_f32", "log_f32", "pow_posc_f32", "tanh_f32"]
+__all__ = ["exp_f32", "log_f32", "log10_f32", "pow_f32", "pow10_f32",
+           "pow_posc_f32", "tanh_f32"]
 
 _LOG2E = 1.44269504088896341
 #: ln2 split (Cephes C1/C2)
 _LN2_HI = 0.693359375
 _LN2_LO = -2.12194440e-4
+#: 1/ln10
+_LOG10E = 0.43429448190325176
 #: the smallest normal float32
 _MIN_NORMAL = 1.1754944e-38
 
@@ -150,3 +155,36 @@ def tanh_f32(x: torch.Tensor) -> torch.Tensor:
     big = torch.where(x < 0, -big, big)
     out = torch.where(ax < f32(0.625), small, big)
     return torch.where(ax > 9.0, torch.sign(x), out)
+
+
+def log10_f32(x: torch.Tensor) -> torch.Tensor:
+    """``log_f32(x) * (1/ln10)`` (``_libm.py:126-127`` of the JAX
+    package)."""
+    return log_f32(x) * f32(_LOG10E)
+
+
+def pow_f32(x: torch.Tensor, c) -> torch.Tensor:
+    """``x**c`` for a constant ``c`` (``_libm.py:130-143`` of the JAX
+    package): ``exp_f32(c * log_f32(x))`` where ``x > 0``; zero, negative
+    and NaN bases keep ``torch.pow``'s edges, which are ``jnp.power``'s
+    (integer-exponent signs, ``0**c``)."""
+    x = x.to(torch.float32)
+    r = exp_f32(f32(c) * log_f32(x))
+    return torch.where(x > 0, r, torch.pow(x, f32(c)))
+
+
+def pow10_f32(x: torch.Tensor) -> torch.Tensor:
+    """``10**x`` by the Cephes exp10f reduction (``_libm.py:219-235`` of
+    the JAX package): an exact power of two split off, ``exp_f32`` of the
+    small rest, and the power of two as two bitcast factors."""
+    x = x.to(torch.float32).clamp(f32(-46.0), f32(39.0))
+    px = torch.floor(f32(3.32192809488736235) * x + 0.5)
+    w = x - px * f32(3.01025390625e-1)
+    w = w - px * f32(4.605038981195213739e-6)
+    e = exp_f32(w * f32(2.302585092994046))
+    n = torch.nan_to_num(px, nan=0.0).clamp(-252.0, 254.0).to(torch.int32)
+    n1 = n >> 1
+    n2 = n - n1
+    s1 = ((n1 + 127) << 23).view(torch.float32)
+    s2 = ((n2 + 127) << 23).view(torch.float32)
+    return (e * s1) * s2

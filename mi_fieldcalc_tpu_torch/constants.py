@@ -1,7 +1,9 @@
-"""Physical constants and the saturation-vapour table the pipeline uses.
+"""Physical constants, the saturation-vapour table and the flight-level
+table.
 
 PyTorch port of the slice of :mod:`mi_fieldcalc_tpu.constants` that the
-derived-field pipeline needs.  The numpy constants carry the reference's
+operators need (the ICAO helpers are host numpy there and not used by
+any operator).  The numpy constants carry the reference's
 float32 values (MetConstants.h:39-59); they are the same objects the JAX
 package defines, re-declared here because the port never imports it.
 """
@@ -14,7 +16,8 @@ import torch
 from .field import f32
 
 __all__ = [
-    "cp", "eps", "kappa", "p0inv", "rhmin", "rhmax", "t0", "xlh", "EWT",
+    "cp", "cplr", "eps", "exl", "g", "kappa", "ms2knots", "p0inv", "rhmin",
+    "rhmax", "t0", "xlh", "EWT", "P_LEVEL_TABLE", "F_LEVEL_TABLE",
     "N_EWT", "ewt_index", "ewt_defined", "ewt_value", "ewt_inverse",
     "clamp_rh", "pidcp_from_p",
 ]
@@ -25,10 +28,15 @@ p0 = np.float32(1000.0)
 t0 = np.float32(273.15)
 eps = np.float32(0.622)
 xlh = np.float32(2.501e6)
+rcp = np.float32(r / cp)
+cplr = np.float32(xlh / rcp)
+exl = np.float32(eps * xlh)
 p0inv = np.float32(1.0 / p0)
 kappa = np.float32(r / cp)
+g = np.float32(9.8)
 rhmin = np.float32(0.02)
 rhmax = np.float32(1.00)
+ms2knots = 3600.0 / 1852.0  # a double in the reference
 
 # e_w(T) for T = -100, -95, ..., +100 degC; 41 entries (MetConstants.h:56-59)
 N_EWT = 41
@@ -38,6 +46,14 @@ EWT = np.array(
      1.9118, 2.8627, 4.2148, 6.1078, 8.7192, 12.272, 17.044, 23.373, 31.671,
      42.430, 56.236, 73.777, 95.855, 123.40, 157.46, 199.26, 250.16, 311.69,
      385.56, 473.67, 578.09, 701.13, 845.28, 1013.25], dtype=np.float32)
+
+# pressure <-> flight level (MetConstants.h:87-91)
+P_LEVEL_TABLE = np.array(
+    [1000, 925, 850, 800, 700, 500, 400, 300, 250, 200, 150, 100, 70, 50, 30,
+     10], dtype=np.float32)
+F_LEVEL_TABLE = np.array(
+    [5, 25, 50, 65, 100, 185, 235, 300, 340, 385, 445, 530, 605, 675, 780,
+     1020], dtype=np.float32)
 
 
 def _ewt(device) -> torch.Tensor:

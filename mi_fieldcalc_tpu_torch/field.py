@@ -55,6 +55,13 @@ class Field:
     def shape(self):
         return self.values.shape
 
+    def sanitized(self, fill: float = 0.0) -> torch.Tensor:
+        """The values with ``fill`` at undefined points: a safe input to a
+        transcendental function."""
+        return torch.where(self.mask, self.values,
+                           torch.tensor(f32(fill), dtype=self.values.dtype,
+                                        device=self.values.device))
+
     def to_sentinel(self, undef: float = UNDEF) -> torch.Tensor:
         """Materialise the sentinel representation."""
         return torch.where(self.mask, self.values,

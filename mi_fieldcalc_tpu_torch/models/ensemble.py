@@ -1,0 +1,116 @@
+"""The ensemble post-processing pipeline (port of
+:mod:`mi_fieldcalc_tpu.models.ensemble`, ``ensemble.py:48-112``).
+
+The 12-output derived-field pipeline runs once per member of a
+``[nmem, nlev, ny, nx]`` member stack, and the ensemble summary (mean,
+spread and two exceedance probabilities) reduces along the member axis
+with the reference's semantics: the mean and spread divide by the defined
+members of each point (FieldCalculations.cc:2706-2719), the probabilities
+by the members whose whole field is not undefined (cc:2840-2847).
+
+With ``fused=True`` on CUDA tensors each member is one launch of the
+pipeline kernel (:func:`..ops.fused.derived_fields_fused`), so the kernel
+runs ``nmem`` times; the JAX package ``vmap``s its ``pallas_call`` over the
+members instead.  Both routes write the members' fields into one stack and
+run the same reductions on it, so they agree bit for bit wherever the
+kernel agrees with its plain version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..field import Field
+from ..ops import mean_value, probability, stddev_value
+from ..ops._harness import not_ported
+from .pipeline import DerivedFields, DerivedFieldsStacked, derived_fields
+
+__all__ = ["EnsembleSummary", "ensemble_derived_summary"]
+
+
+class EnsembleSummary(NamedTuple):
+    """Per-quantity ensemble statistics (Fields of ``[nlev, ny, nx]``)."""
+    mean: DerivedFields       # ensemble mean of each derived field
+    spread: DerivedFields     # ensemble (population) standard deviation
+    prob_wind: Field          # P(wind speed > wind_limit) in %
+    prob_t_freeze: Field      # P(temperature advection cools below 0) in %
+
+
+def _member(f: Field, m: int) -> Field:
+    return Field(f.values[m], f.mask[m])
+
+
+def ensemble_member_fields(tk: Field, q: Field, u: Field, v: Field,
+                           ps: Field, alevel, blevel, xmapr, ymapr,
+                           fcoriolis, fused: bool = False,
+                           all_defined: bool = False) -> DerivedFields:
+    """The 12 derived fields of every member, as :class:`DerivedFields` of
+    ``[nmem, nlev, ny, nx]`` Fields.  ``fused=True`` takes each member
+    through :func:`..ops.fused.derived_fields_fused` (the kernel on CUDA
+    tensors, its plain version on CPU tensors), with ``all_defined`` passed
+    through; ``fused=False`` through :func:`.pipeline.derived_fields`."""
+    nmem = tk.values.shape[0]
+    dev = tk.values.device
+    shape = tuple(tk.values.shape[1:])
+    values = torch.empty((12, nmem) + shape, dtype=torch.float32,
+                         device=dev)
+    masks = torch.empty((12, nmem) + shape, dtype=torch.bool, device=dev)
+    if fused:
+        from ..ops.fused import derived_fields_fused
+    for m in range(nmem):
+        args = [_member(f, m) for f in (tk, q, u, v, ps)]
+        if fused:
+            st = derived_fields_fused(*args, alevel, blevel, xmapr, ymapr,
+                                      fcoriolis, stacked=True,
+                                      all_defined=all_defined)
+            values[:, m] = st.values
+            for i in range(12):
+                masks[i, m] = DerivedFieldsStacked.mask_plane(
+                    st.masks, i, st.values[i])
+        else:
+            for i, f in enumerate(derived_fields(*args, alevel, blevel,
+                                                 xmapr, ymapr, fcoriolis)):
+                values[i, m] = f.values
+                masks[i, m] = f.mask
+    return DerivedFields(*[Field(values[i], masks[i]) for i in range(12)])
+
+
+def ensemble_summary(out: DerivedFields,
+                     wind_limit: float = 15.0) -> EnsembleSummary:
+    """Mean and spread of all 12 member-stacked fields, the probability of
+    wind speed above ``wind_limit`` and of a cooling 1-hour temperature
+    advection."""
+    return EnsembleSummary(
+        mean=DerivedFields(*[mean_value(f) for f in out]),
+        spread=DerivedFields(*[stddev_value(f) for f in out]),
+        prob_wind=probability(1, out.wspeed, (float(wind_limit),)),
+        prob_t_freeze=probability(2, out.tadv, (0.0,)))
+
+
+def ensemble_derived_summary(tk: Field, q: Field, u: Field, v: Field,
+                             ps: Field, alevel, blevel, xmapr, ymapr,
+                             fcoriolis, wind_limit: float = 15.0,
+                             fused: bool = False, global_shape=None,
+                             all_defined: bool = False) -> EnsembleSummary:
+    """Derived fields per member, then the ensemble statistics.
+
+    ``tk, q, u, v`` are ``[nmem, nlev, ny, nx]`` member-stacked Fields and
+    ``ps`` ``[nmem, ny, nx]``; ``alevel .. fcoriolis`` are shared by all
+    members, as in :func:`.pipeline.derived_fields`.  ``fused=True`` runs
+    each member through the pipeline kernel (one launch per member on CUDA
+    tensors); ``all_defined`` (fused only) asserts every point of every
+    member is defined and takes the kernel's all-defined route.  The TPU's
+    padded layout (``global_shape``) is not ported."""
+    if (global_shape is not None or all_defined) and not fused:
+        raise ValueError("ensemble_derived_summary: global_shape/"
+                         "all_defined require fused=True")
+    if global_shape is not None:
+        raise not_ported("mi_fieldcalc_tpu.models.ensemble."
+                         "ensemble_derived_summary",
+                         "the padded layout (global_shape)")
+    out = ensemble_member_fields(tk, q, u, v, ps, alevel, blevel, xmapr,
+                                 ymapr, fcoriolis, fused=fused,
+                                 all_defined=all_defined)
+    return ensemble_summary(out, wind_limit)

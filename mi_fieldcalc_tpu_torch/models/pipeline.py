@@ -1,16 +1,18 @@
 """The derived-field pipelines (port of :mod:`mi_fieldcalc_tpu.models.
-pipeline`, ``pipeline.py:47-299``).
+pipeline`, ``pipeline.py:47-314``).
 
 12 outputs from temperature, specific humidity, wind and surface pressure
 on hybrid model levels: pressure, theta, RH, Td, theta_e, ducting, wind
 speed, vorticity, divergence, T-advection, |grad T| and TFP
-(:func:`derived_fields`); and the same 12 on standard isobaric surfaces
-after a vertical interpolation (:func:`derived_fields_isobaric`).
+(:func:`derived_fields`); the same 12 on standard isobaric surfaces after
+a vertical interpolation (:func:`derived_fields_isobaric`); and theta,
+dewpoint and the kinematics on one pressure level
+(:func:`derived_fields_plevel`, BASELINE config 1).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -18,12 +20,14 @@ import torch
 from ..field import Field, from_arrays
 from ..ops import (
     advection, aleveltemp, alevelducting, alevelhum, alevelthe, divergence,
-    gradient, relvort, thermal_front_parameter, vectorabs,
+    gradient, plevelhum, pleveltemp, relvort, thermal_front_parameter,
+    vectorabs,
 )
 from ..ops._harness import not_ported
 
 __all__ = ["DerivedFields", "DerivedFieldsStacked", "STANDARD_PLEVELS",
-           "derived_fields", "derived_fields_isobaric", "inputs_from_numpy"]
+           "derived_fields", "derived_fields_isobaric",
+           "derived_fields_plevel", "inputs_from_numpy"]
 
 #: Standard isobaric surfaces for the 3-D vertical pipeline (hPa).
 STANDARD_PLEVELS = (1000.0, 925.0, 850.0, 700.0, 500.0, 400.0, 300.0,
@@ -206,6 +210,22 @@ def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
         tadv=advection(tki, ui, vi, xm, ym, hours=1.0),
         gradt=gradient(tki, xm, ym, compute=3),
         tfp=thermal_front_parameter(tki, xm, ym))
+
+
+def derived_fields_plevel(tk: Field, rh: Field, u: Field, v: Field,
+                          p: float, xmapr, ymapr,
+                          fcoriolis) -> Dict[str, Field]:
+    """The pressure-level variant (BASELINE config 1): theta, dewpoint
+    and the kinematics on one constant-pressure surface.  The dewpoint is
+    ``plevelhum`` mode 11, which reads its second field as specific
+    humidity (FieldCalculations.cc:400-464); ``fcoriolis`` is not used."""
+    del fcoriolis
+    return {"th": pleveltemp(tk, p, compute=3),
+            "td": plevelhum(tk, rh, p, compute=11),
+            "wspeed": vectorabs(u, v),
+            "vort": relvort(u, v, xmapr, ymapr),
+            "div": divergence(u, v, xmapr, ymapr),
+            "gradt": gradient(tk, xmapr, ymapr, compute=3)}
 
 
 def inputs_from_numpy(args, device=None) -> tuple:

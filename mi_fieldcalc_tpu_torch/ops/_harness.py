@@ -5,10 +5,10 @@ from __future__ import annotations
 
 import torch
 
-from ..field import Field
+from ..field import Field, f32
 
 __all__ = ["require", "and_masks", "out_field", "not_ported",
-           "check_tensor"]
+           "check_tensor", "const", "div"]
 
 
 def require(cond: bool, message: str) -> None:
@@ -21,6 +21,24 @@ def not_ported(jax_function: str, what: str) -> NotImplementedError:
     """The error for a mode of a JAX function that the port leaves out."""
     return NotImplementedError(
         f"{what} is not ported; use {jax_function} of the JAX package")
+
+
+def const(x, ref: torch.Tensor) -> torch.Tensor:
+    """The float32 constant ``x`` as a 0-dim tensor on ``ref``'s device:
+    a divisor or dividend that keeps PyTorch's division IEEE."""
+    return torch.tensor(f32(x), dtype=torch.float32, device=ref.device)
+
+
+def div(a, b) -> torch.Tensor:
+    """``a / b`` as an IEEE float32 division, either side a Python number
+    or a tensor.  PyTorch turns ``tensor / number`` on CUDA and ``number /
+    tensor`` on every device into a multiply by a reciprocal, which is not
+    the quotient the JAX package and the kernels compute."""
+    if not isinstance(a, torch.Tensor):
+        a = const(a, b)
+    elif not isinstance(b, torch.Tensor):
+        b = const(b, a)
+    return torch.div(a, b)
 
 
 def and_masks(*fields_or_masks) -> torch.Tensor:

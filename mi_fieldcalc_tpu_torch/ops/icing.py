@@ -39,35 +39,18 @@ import torch
 from .._libm import exp_f32, log_f32, tanh_f32
 from ..constants import t0
 from ..field import Field, f32
-from ._harness import and_masks, out_field, require
+from ._harness import and_masks, const as _c, div as _div, out_field, require
 
 __all__ = [
     "vessel_icing_overland", "vessel_icing_mertins",
     "vessel_icing_modstall", "vessel_icing_mincog",
 ]
 
-_F = torch.float32
 #: the reference's bisection bracket in N (VI:391)
 _BISECT_A, _BISECT_B = -0.5, 1.3
 #: safeguarded-Newton iterations per height (icing.py:910)
 _NEWTON_ITERS = 8
 _INF = float("inf")
-
-
-def _c(x, ref: torch.Tensor) -> torch.Tensor:
-    """The float32 constant ``x`` as a 0-dim tensor on ``ref``'s device:
-    a divisor or dividend that keeps PyTorch's division IEEE."""
-    return torch.tensor(f32(x), dtype=_F, device=ref.device)
-
-
-def _div(a, b) -> torch.Tensor:
-    """``a / b`` as an IEEE float32 division, either side a Python
-    number or a tensor."""
-    if not isinstance(a, torch.Tensor):
-        a = _c(a, b)
-    elif not isinstance(b, torch.Tensor):
-        b = _c(b, a)
-    return torch.div(a, b)
 
 
 def _max(a: torch.Tensor, b) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""Temperature / humidity / THE / ducting operators on hybrid and generic
-model levels (port of :mod:`mi_fieldcalc_tpu.ops.levels`,
-``levels.py:49-78, 109-327``).
+"""Temperature / humidity / THE / ducting operators on pressure, hybrid,
+generic model and ocean levels (port of :mod:`mi_fieldcalc_tpu.ops.levels`).
 
+The pressure-level family (``pleveltemp`` ... ``plevelducting``,
+``pleveldz2tmean``) folds ``(p/p0)**kappa`` into a float32 scalar on the
+host, as the reference does; the scalars reach the tensors as 0-dim
+tensors wherever they divide, so every quotient stays IEEE on the card.
 The hybrid ("hlevel", per-point ``p = alevel + blevel * ps``) and generic
 model-level ("alevel", a pressure field) variants share one core per
 family taking a pressure tensor, as in the JAX package.  Every compute
-mode of both families is ported, with the reference's quirks:
+mode of every family is ported, with the reference's quirks:
 
 * ``alevelhum`` lets an undefined pressure flow into the pressure-using
   modes as the sentinel itself (defined garbage), while its
@@ -15,25 +18,33 @@ mode of both families is ported, with the reference's quirks:
 * ``alevelducting`` propagates the pressure mask (the reference never
   updates it, a latent bug the JAX package corrects).
 
-The pressure-level family (``pleveltemp`` ... ``plevelducting``),
-``pleveldz2tmean`` and ``sea_sound_speed`` are not ported yet.  Invalid
-parameters raise :class:`ValueError` (reference: ``return false``).
+``sea_sound_speed`` keeps the reference's float64 intermediates
+(FieldCalculations.cc:1581-1593) as float64 tensors; the JAX package
+computes it in float32.  Invalid parameters raise :class:`ValueError`
+(reference: ``return false``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..constants import cp, pidcp_from_p, t0, xlh
-from ..field import Field, f32
+from ..constants import cp, eps, g, kappa, p0inv, pidcp_from_p, t0, xlh
+from ..field import UNDEF, Field, f32, full_undef
 from . import thermo
-from ._harness import and_masks, out_field, require
+from ._harness import and_masks, const, div, out_field, require
 
 __all__ = [
-    "hleveltemp", "hlevelthe", "hlevelhum", "hlevelducting",
-    "hlevelpressure", "aleveltemp", "alevelthe", "alevelhum",
-    "alevelducting",
+    "pleveltemp", "plevelthe", "plevelhum", "pleveldz2tmean",
+    "plevelducting", "sea_sound_speed", "hleveltemp", "hlevelthe",
+    "hlevelhum", "hlevelducting", "hlevelpressure", "aleveltemp",
+    "alevelthe", "alevelhum", "alevelducting",
 ]
+
+
+def _scalar_pidcp(p: float) -> np.float32:
+    """Host-side float32 ``(p/p0)**kappa``, numpy's float32 ``powf``."""
+    return np.float32(np.power(np.float32(p) * p0inv, kappa))
 
 
 def _remap_temp_compute(compute: int, unit: str) -> int:
@@ -64,6 +75,124 @@ def _bad_hlevel(alevel: float, blevel: float) -> bool:
 
 def _hybrid_p(ps: Field, alevel: float, blevel: float) -> torch.Tensor:
     return f32(alevel) + f32(blevel) * ps.values
+
+
+# ---------------------------------------------------------------------------
+# pressure levels: p a constant
+# ---------------------------------------------------------------------------
+
+def pleveltemp(t: Field, p: float, compute: int, unit: str = "") -> Field:
+    """Pressure-level temperature conversions (FieldCalculations.cc:
+    328-367): 1 TH->T(C), 2 TH->T(K), 3 T(K)->TH, 4 T(K)->theta_e,sat,
+    5 TH->theta_e,sat; ``unit`` overrides compute < 3."""
+    require(p > 0, "pleveltemp: p <= 0")
+    compute = _remap_temp_compute(compute, unit)
+    require(1 <= compute <= 5, f"pleveltemp: bad compute {compute}")
+    pidcp = _scalar_pidcp(p)
+    v = t.values
+    if compute == 1:
+        return Field(v * float(pidcp) - float(t0), t.mask)
+    if compute == 2:
+        return Field(v * float(pidcp), t.mask)
+    if compute == 3:
+        return Field(div(v, pidcp), t.mask)
+    pa, pi = const(p, v), const(np.float32(pidcp * cp), v)
+    if compute == 4:
+        out, ok = thermo.t_thesat(v, pa, pi)
+    else:  # 5
+        out, ok = thermo.th_thesat(v, pa, pi)
+    return out_field(out, t.mask & ok)
+
+
+def plevelthe(t: Field, rh: Field, p: float, compute: int) -> Field:
+    """Equivalent potential temperature from T or TH and RH% at a pressure
+    level (FieldCalculations.cc:369-398): 1 T(K), 2 TH."""
+    require(compute in (1, 2), f"plevelthe: bad compute {compute}")
+    require(p > 0, "plevelthe: p <= 0")
+    pidcp = _scalar_pidcp(p)
+    pi = np.float32(pidcp * cp)
+    cvrh = np.float32(np.float32(0.01) * (xlh / pi) * eps / np.float32(p))
+    tconv = float(pidcp) if compute == 2 else 1.0
+    out, ok = thermo.tk_rh_the(t.values * tconv, rh.values * float(cvrh),
+                               np.float32(1) / pidcp)
+    return out_field(out, and_masks(t, rh) & ok)
+
+
+def plevelhum(t: Field, hum: Field, p: float, compute: int, unit: str = "",
+              undef: float = UNDEF) -> Field:
+    """Pressure-level humidity conversions (FieldCalculations.cc:400-464).
+    compute (after the unit remap): 1/2 q->RH%, 3/4 RH%->q, 5/6 RH%->Td(C),
+    7/8 q->Td(C), 9-12 as 5-8 in Kelvin; odd modes take T(K), even modes
+    TH.  ``p == undef`` gives an all-undefined field unless the mode does
+    not use the pressure (5/6/9/10)."""
+    require(p > 0 and 0 < compute < 13, "plevelhum: bad p or compute")
+    compute = _remap_hum_compute(compute, unit)
+    if p == undef and compute not in (5, 6, 9, 10):
+        return full_undef(t.shape, t.values.device)
+    tconv = float(_scalar_pidcp(p)) if compute % 2 == 0 else 1.0
+    tdconv = float(t0) if compute >= 9 else 0.0
+    tk = t.values * tconv
+    pa = const(p, tk)
+    if compute in (1, 2):
+        out, ok = thermo.tk_q_rh(tk, hum.values, pa)
+    elif compute in (3, 4):
+        out, ok = thermo.tk_rh_q(tk, hum.values, pa)
+    elif compute in (5, 6, 9, 10):
+        out, ok = thermo.tk_rh_td(tk, hum.values, tdconv)
+    else:  # 7, 8, 11, 12
+        out, ok = thermo.tk_q_td(tk, hum.values, pa, tdconv)
+    return out_field(out, and_masks(t, hum) & ok)
+
+
+def plevelducting(t: Field, h: Field, p: float, compute: int) -> Field:
+    """Ducting index at a pressure level (FieldCalculations.cc:597-636):
+    1 (T,q), 2 (TH,q), 3 (T,RH%), 4 (TH,RH%)."""
+    require(p > 0, "plevelducting: p <= 0")
+    require(compute in (1, 2, 3, 4), f"plevelducting: bad compute {compute}")
+    tconv = float(_scalar_pidcp(p)) if compute % 2 == 0 else 1.0
+    tk = t.values * tconv
+    pa = const(p, tk)
+    mask = and_masks(t, h)
+    if compute in (1, 2):
+        return out_field(thermo.tk_q_duct(tk, h.values, pa), mask)
+    out, ok = thermo.tk_rh_duct(tk, h.values, pa)
+    return out_field(out, mask & ok)
+
+
+def pleveldz2tmean(z1: Field, z2: Field, p1: float, p2: float,
+                   compute: int) -> Field:
+    """Mean temperature of a thickness layer (FieldCalculations.cc:
+    466-503): 1 mean T(C), 2 mean T(K), 3 mean theta."""
+    require(p1 > 0 and p2 > 0 and p1 != p2, "pleveldz2tmean: bad p1/p2")
+    require(compute in (1, 2, 3), f"pleveldz2tmean: bad compute {compute}")
+    pi1 = np.float32(_scalar_pidcp(p1) * cp)
+    pi2 = np.float32(_scalar_pidcp(p2) * cp)
+    if compute in (1, 2):
+        convert = np.float32(g * np.float32(0.5) * (pi1 + pi2)
+                             / ((pi2 - pi1) * cp))
+        tconvert = -float(t0) if compute == 1 else 0.0
+    else:
+        convert = np.float32(g / (pi2 - pi1))
+        tconvert = 0.0
+    out = (z1.values - z2.values) * float(convert) + tconvert
+    return out_field(out, and_masks(z1, z2))
+
+
+def sea_sound_speed(t: Field, s: Field, z: float, compute: int) -> Field:
+    """Sea-water sound speed, D. Ross SACLANTCEN SM-107
+    (FieldCalculations.cc:1555-1602): 1 T in Celsius, 2 in Kelvin.  The
+    intermediates are float64, as the reference's are (cc:1581-1593); the
+    result is rounded to float32."""
+    require(compute in (1, 2), f"seaSoundSpeed: bad compute {compute}")
+    tconv = 0.0 if compute == 1 else float(t0)
+    zz = abs(float(z))
+    cz = 0.01635 * zz + 0.000000175 * zz * zz
+    tt = t.values.to(torch.float64) - tconv
+    ss = s.values.to(torch.float64)
+    ct = 4.565 * tt - 0.0517 * tt * tt + 0.000221 * tt * tt * tt
+    cs = (1.338 - 0.013 * tt + 0.0001 * tt * tt) * (ss - 35.0)
+    out = 1449.1 + ct + cs + cz
+    return out_field(out.to(torch.float32), and_masks(t, s))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Per-point thermodynamic kernels (port of
-:mod:`mi_fieldcalc_tpu.ops.thermo`, ``thermo.py:52-136``, without
-``tk_rh_the``, which only the pressure-level family uses).
+:mod:`mi_fieldcalc_tpu.ops.thermo`, ``thermo.py:52-136``).
 
 Kernels that can introduce undefined points (saturation table out of
 range) return ``(value, ok)``; pure kernels return the value.
@@ -17,7 +16,7 @@ from ..constants import (
 from ..field import f32
 
 __all__ = ["esat_table", "t_thesat", "th_thesat", "tk_q_rh", "tk_rh_q",
-           "tk_q_td", "tk_rh_td", "tk_q_duct", "tk_rh_duct"]
+           "tk_q_td", "tk_rh_td", "tk_rh_the", "tk_q_duct", "tk_rh_duct"]
 
 
 def esat_table(tk: torch.Tensor):
@@ -76,6 +75,14 @@ def tk_rh_td(tk, rh100, tdconv: float):
     et, ok, _, l = esat_table(tk)
     rh = clamp_rh(f32(0.01) * rh100)
     return ewt_inverse(rh * et, l) + float(tdconv), ok
+
+
+def tk_rh_the(tk, rh, thconv):
+    """Equivalent potential temperature building block
+    (FieldCalculations.cc:269-278): ``tk*thconv + e_w(tk)*rh``, where the
+    caller pre-scales ``rh`` by ``0.01*(xlh/pi)*eps/p``."""
+    et, ok, _, _ = esat_table(tk)
+    return tk * float(thconv) + et * rh, ok
 
 
 def tk_q_duct(tk, q, p):

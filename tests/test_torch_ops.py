@@ -131,22 +131,18 @@ def test_fill_edges_matches_jax(dtype):
     (lambda o, f: o.gradient(f["tk"], 1.0, 1.0, 4), "gradient"),
 ])
 def test_unported_modes_raise(call, jax_name):
-    """The level modes run and equal the JAX functions (op by op, masks
-    bitwise, values within rtol 2e-5); ``gradient`` mode 4 is not ported
-    and raises."""
+    """The level modes and ``gradient`` mode 4 (the laplacian, ported with
+    the rest of the stencils) run and equal the JAX functions (op by op,
+    masks bitwise, values within rtol 2e-5); a bad compute mode raises."""
     a = _arrays(seed=len(jax_name))
     names = ("tk", "q", "p")
     tf = {k: _t(a[k]) for k in names}
-    if jax_name == "gradient":
-        with pytest.raises(NotImplementedError, match=jax_name):
-            call(tops, tf)
-    else:
-        ref = call(jops, {k: _j(a[k]) for k in names})
-        got = call(tops, tf)
-        rm = np.asarray(ref.mask)
-        np.testing.assert_array_equal(got.mask.numpy(), rm)
-        assert rm.any() and not rm.all()
-        np.testing.assert_allclose(got.values.numpy()[rm],
-                                   np.asarray(ref.values)[rm], rtol=2e-5)
+    ref = call(jops, {k: _j(a[k]) for k in names})
+    got = call(tops, tf)
+    rm = np.asarray(ref.mask)
+    np.testing.assert_array_equal(got.mask.numpy(), rm)
+    assert rm.any() and not rm.all()
+    np.testing.assert_allclose(got.values.numpy()[rm],
+                               np.asarray(ref.values)[rm], rtol=2e-5)
     with pytest.raises(ValueError):
         tops.aleveltemp(tf["tk"], tf["tk"], 7)
