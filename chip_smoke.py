@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
    times;
 5. times on this card: kernel and plain medians (CUDA events; the kernel
    also as the launch alone), effective GB/s, a device copy's GB/s for
-   scale, and one request split into decode, H2D, kernel, D2H and encode;
+   scale, and one request on page-locked blocks split into decode, H2D,
+   kernel, D2H and encode (the first, allocating request apart; beside
+   it the parent design's pageable copies of the same blocks);
 6. the column-interpolation kernel and the two suite kernels against
    their plain versions on the card, at phase 3's shapes and a 137-level
    column (137, 9, 150): masked and all-defined, ln p and p, targets above
@@ -90,7 +92,29 @@ Phases (any failure raises and exits non-zero):
    route's (masks bitwise, defined values bit for bit), then its time
    split into the 8 launches, the member stack and the reductions, and
    ``torch.cuda.max_memory_allocated``.  The kernels line lists B1 a
-   second time for this path (``"path": "ensemble_derived_summary"``).
+   second time for this path (``"path": "ensemble_derived_summary"``);
+12. the stream: the page-locked and pageable copy rates of a 1 GiB buffer
+   each way; the serving request's own steps as they overlap (decode,
+   queueing, each chunk's wait and encode), its planes encoded in one call
+   and in chunks, and what writing fresh output pages costs; six
+   32x719x929 requests (masked and all-defined mixed) through
+   ``run_derived_fields_np`` and twice through ``stream_derived_fields_np``
+   with every kernel's count zeroed before the first (B1 exactly 6, no
+   other kernel), every streamed dict byte for byte the serial entry's, the
+   time between yields; the stream under ``torch.profiler`` (busy share,
+   H2D, D2H and B1; B1 must be in the trace); and B1 on step 1's inputs
+   against its plain version (the kernels line lists B1 a third time,
+   ``"path": "stream_derived_fields_np"``);
+13. the drop-in api (``mi_fieldcalc_tpu_torch.api``): every function once
+   on the card at 719x929 (``tests/torch_api_cases.py``; the icing ones on
+   phase 9's request 1) with every kernel's count zeroed before and read
+   after (B5 and B6 exactly once each, no other kernel), each output held
+   to the same call on the CPU (sentinels equal, values within RTOL and
+   2e-6 of the field's largest magnitude) and vesselIcingMincog /
+   vesselIcingModStall bit for bit to the plain operators on the card; then
+   B5 and B6 alone on the api's decoded inputs against their plain
+   versions (the kernels line lists them again with ``"path":
+   "api.vesselIcingMincog"`` / ``"api.vesselIcingModStall"``).
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -474,6 +498,98 @@ def check_physics(out: dict, nlev: int, ny: int, nx: int) -> None:
         raise AssertionError("outputs outside physical bounds")
 
 
+def encode_stacked(out) -> dict:
+    """A pipeline result (a ``DerivedFieldsStacked`` on any device) as the
+    serving entry's sentinel dict, through a stager of its own."""
+    from mi_fieldcalc_tpu_torch import staging
+    return staging._encode_step(staging._fetch(out, staging.HostStager(4)),
+                                1e35)
+
+
+def icing_fields(args, dev) -> tuple:
+    """The 11 icing inputs decoded and uploaded as the serving entry
+    does."""
+    from mi_fieldcalc_tpu_torch import staging
+    stager = staging.HostStager(11, pin=dev.type == "cuda")
+    stager.decode(*args)
+    return staging._icing_upload_step(stager, dev)
+
+
+def icing_runs(fields, alt: int) -> dict:
+    """B5 (MINCOG with ``alt``) and B6 on decoded icing Fields at
+    ICING_SCAL: ``{name: (launch, plain, nplanes, nflags)}``, the launch
+    alone and ``plain(trips=None)``, the plain version, on the same
+    prologue planes; ``nplanes`` / ``nflags`` the planes and flags the
+    kernel reads."""
+    import math
+    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
+    from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
+    vs, alpha, zmin, zmax = ICING_SCAL
+    vsca = float(vs * math.cos(alpha))
+    decay = _mincog_decay(zmin, _number(zmin, zmax))
+    g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
+    g6, p6, sh6 = F._modstall_prologue(*fields)
+    return {
+        "mincog": (lambda: F._launch(
+            F.vessel_icing_mincog_fused, F._PLANES, p5, (g5, sh5, sk5),
+            decay, vsca, alt),
+            lambda trips=None: F._mincog_plain(g5, p5, sh5, sk5, vsca, alt,
+                                               decay, trips), 17, 3),
+        "modstall": (lambda: F._launch(
+            F.vessel_icing_modstall_fused, F._MS_PLANES, p6, (g6, sh6),
+            decay, vsca, None),
+            lambda trips=None: F._modstall_plain(g6, p6, sh6, vsca, decay,
+                                                 trips), 12, 2)}
+
+
+def request_split(reps: int, dev, decode, upload, compute, fetch,
+                  encode) -> tuple:
+    """One serving request ``reps + 1`` times, split into decode, H2D,
+    kernel, D2H (every chunk copied) and encode on the host clock around
+    synchronised steps; beside them the parent design's pageable copies
+    of the same blocks (``from_numpy(...).to(device)`` in, ``.cpu()`` into
+    fresh host tensors out).  Returns the first (allocating) request's
+    split and the median of the others'."""
+    import torch
+    keys = ("decode", "h2d", "kernel", "d2h", "encode", "total",
+            "pageable_h2d", "pageable_d2h")
+    parts = {k: [] for k in keys}
+    for _ in range(reps + 1):
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize(dev)
+            marks.append(time.perf_counter())
+
+        mark()
+        host, ad = decode()
+        mark()
+        staged = upload(host)
+        mark()
+        out = compute(staged, ad)
+        mark()
+        fetched = fetch(out)
+        mark()
+        encode(fetched)
+        mark()
+        # pageable copies of the blocks: CUDA recognises page-locked
+        # memory, so a copy straight from the stager would run as one
+        pageable = [np.array(host.values), np.array(host.mask)]
+        mark()
+        for a in pageable:
+            torch.from_numpy(a).to(dev)
+        mark()
+        out.values.cpu()
+        out.masks.cpu()
+        mark()
+        dts = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        for key, dt in zip(keys, dts[:5] + [sum(dts[:5])] + dts[6:]):
+            parts[key].append(dt)
+        del host, staged, out, fetched
+    first = {k: v[0] for k, v in parts.items()}
+    return first, {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
 def phase_env() -> tuple:
     import torch
     smi = subprocess.run(
@@ -568,8 +684,8 @@ def phase_main_path(dev, nlev=NLEV, ny=NY, nx=NX) -> dict:
     outs, buffers = [], []
     for _, args, _ in requests:
         outs.append(staging.run_derived_fields_np(*args, device=dev))
-        stager = staging._stager_cache(4, 1e35)
-        buffers.append((id(stager), id(stager.values)))
+        stager = staging._stager_cache(4, 1e35, True)
+        buffers.append((id(stager), id(stager.values), stager.pin))
     torch.cuda.synchronize(dev)
     launches = fused.derived_fields_fused.launches
     log(f"main path: 3 requests at {nlev}x{ny}x{nx}, kernel launches "
@@ -593,7 +709,7 @@ def phase_main_path(dev, nlev=NLEV, ny=NY, nx=NX) -> dict:
             errs = compare_stacked(kern, plain, "full size masked")
             max_abs = max(errs["max_abs"].values())
             del kern
-        ref = staging._encode_step(*staging._fetch(plain), 1e35)
+        ref = encode_stacked(plain)
         del plain, staged
         compare_dicts(out, ref, f"request {k + 1}")
         check_physics(out, nlev, ny, nx)
@@ -643,33 +759,21 @@ def phase_times(dev, smi: str, nlev=NLEV, ny=NY, nx=NX, reps=10,
 
     for label, undefs in (("masked", True), ("all_defined", False)):
         args = make_inputs(nlev, ny, nx, 5, undefs, "column")
-        stager = staging.HostStager(4)
-        parts = {k: [] for k in ("decode", "h2d", "kernel", "d2h",
-                                 "encode", "total")}
-        for _ in range(request_reps):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            host, ad = staging._decode_step(args, stager, 1e35)
-            t1 = time.perf_counter()
-            staged = staging._upload_step(host, dev)
-            torch.cuda.synchronize(dev)
-            t2 = time.perf_counter()
-            out = staging._compute(staged, ad)
-            torch.cuda.synchronize(dev)
-            t3 = time.perf_counter()
-            vals, masks = staging._fetch(out)
-            t4 = time.perf_counter()
-            staging._encode_step(vals, masks, 1e35)
-            t5 = time.perf_counter()
-            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
-                                       t5 - t4, t5 - t0)):
-                parts[key].append(dt * 1e3)
-            del staged, out, vals, masks
-        med = {k: statistics.median(v) for k, v in parts.items()}
+        stager = staging.HostStager(4, pin=True)
+        first, med = request_split(
+            request_reps, dev,
+            lambda: staging._decode_step(args, stager, 1e35),
+            lambda host: staging._upload_step(host, dev),
+            staging._compute,
+            lambda out: staging._fetch(out, stager),
+            lambda fetched: staging._encode_step(fetched, 1e35))
         res[f"request_{label}_ms"] = med
-        log(f"[{smi}] request ({label}) median of {request_reps}, ms: "
-            + " ".join(
-            f"{k}={v:.2f}" for k, v in med.items()))
+        res[f"request_{label}_first_ms"] = first
+        log(f"[{smi}] request ({label}, page-locked blocks) median of "
+            f"{request_reps}, ms: " + " ".join(
+                f"{k}={v:.2f}" for k, v in med.items())
+            + "; the first (allocating) request: " + " ".join(
+                f"{k}={v:.2f}" for k, v in first.items()))
     return res
 
 
@@ -790,7 +894,6 @@ def suite_bytes(nin3, nout, nplanes, nlev, ny, nx, ps_plane: bool,
 def phase_isobaric(dev, smi: str, copy_gbps: float, reps=10) -> dict:
     """BASELINE config 4 at full size through derived_fields_isobaric."""
     import torch
-    from mi_fieldcalc_tpu_torch import staging
     from mi_fieldcalc_tpu_torch.field import Field, from_sentinel
     from mi_fieldcalc_tpu_torch.models import (STANDARD_PLEVELS,
                                                derived_fields_isobaric)
@@ -827,7 +930,7 @@ def phase_isobaric(dev, smi: str, copy_gbps: float, reps=10) -> dict:
         *iso_surface_args(interp, xm, ym, fc, dev))
     errs = compare_stacked(out, plain, "isobaric full size")
     max_abs = max(errs["max_abs"].values())
-    res = staging._encode_step(*staging._fetch(out), 1e35)
+    res = encode_stacked(out)
     check_physics(res, nt, ny, nx)
     log(f"isobaric path == plain composition (max abs err {max_abs!r}); "
         f"outputs within the physical bounds")
@@ -1156,8 +1259,8 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
                                    "suite full size masked",
                                    defined_only=True)
             del kern
-        ref = staging._suite_encode_step(*staging._fetch(plain),
-                                         plain.mask_map, reqs, 1e35)
+        ref = staging._suite_encode_step(
+            staging._suite_fetch(plain, staging.HostStager(3)), reqs, 1e35)
         del plain, staged
         if list(out) != list(ref):
             raise AssertionError(f"suite request {k + 1}: keys {list(out)}")
@@ -1233,32 +1336,20 @@ def phase_suites(dev, smi: str, copy_gbps: float, reps=10,
         f"({b4 / 1e9:.3f} GB); device copy {copy_gbps:.1f} GB/s")
 
     # one masked suite request, split
-    stager = staging.HostStager(3)
-    parts = {k: [] for k in ("decode", "h2d", "kernel", "d2h", "encode",
-                             "total")}
-    for _ in range(request_reps):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        host, ad = staging._suite_decode_step(tk, q, rh, ps, al, bl, reqs,
-                                              stager, 1e35)
-        t1 = time.perf_counter()
-        staged = staging._suite_upload_step(host, reqs, dev)
-        torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
-        out = staging._suite_compute(staged, reqs, ad)
-        torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        vals, masks = staging._fetch(out)
-        t4 = time.perf_counter()
-        staging._suite_encode_step(vals, masks, out.mask_map, reqs, 1e35)
-        t5 = time.perf_counter()
-        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
-                                   t5 - t4, t5 - t0)):
-            parts[key].append(dt * 1e3)
-        del staged, out, vals, masks
-    split = {k: statistics.median(v) for k, v in parts.items()}
-    log(f"[{smi}] suite request (masked) median of {request_reps}, ms: "
-        + " ".join(f"{k}={v:.2f}" for k, v in split.items()))
+    stager = staging.HostStager(3, pin=True)
+    first, split = request_split(
+        request_reps, dev,
+        lambda: staging._suite_decode_step(tk, q, rh, ps, al, bl, reqs,
+                                           stager, 1e35),
+        lambda host: staging._suite_upload_step(host, reqs, dev),
+        lambda staged, ad: staging._suite_compute(staged, reqs, ad),
+        lambda out: staging._suite_fetch(out, stager),
+        lambda fetched: staging._suite_encode_step(fetched, reqs, 1e35))
+    split["first"] = first
+    log(f"[{smi}] suite request (masked, page-locked blocks) median of "
+        f"{request_reps}, ms: " + " ".join(
+            f"{k}={v:.2f}" for k, v in split.items() if k != "first")
+        + f"; the first (allocating) request: {first}")
     return {"hlevel_launches": h_launches, "alevel_launches": a_launches,
             "hlevel_max_abs_err": h_err, "alevel_max_abs_err": a_err,
             "times": {**med, "alevel_ms_all": k3, "alevel_plain_ms_all": p3,
@@ -1588,8 +1679,7 @@ def icing_plain_request(args, dev, alt: int) -> dict:
     and upload, the plain versions in place of the two kernels."""
     from mi_fieldcalc_tpu_torch import staging
     from mi_fieldcalc_tpu_torch.ops import icing_fused as F
-    fields = staging._icing_upload_step(
-        staging.HostStager(11).decode(*args), dev)
+    fields = icing_fields(args, dev)
     outs = dict(zip(("overland", "mertins"), staging._icing_products(
         fields, *ICING_SCAL, alt, ("overland", "mertins"))))
     outs["modstall"] = F.vessel_icing_modstall_plain(*fields, *ICING_SCAL)
@@ -1763,24 +1853,12 @@ def phase_icing_times(dev, smi: str, copy_gbps: float, f32_rate: float,
     number = _number(zmin, zmax)
     decay = _mincog_decay(zmin, number)
     _, args, _ = icing_requests()[0]
-    fields = staging._icing_upload_step(
-        staging.HostStager(11).decode(*args), dev)
+    fields = icing_fields(args, dev)
     npts = fields[0].values.numel()
     res = {"card": smi, "shape": list(ICING_SHAPE), "heights": number,
            "resources": icing_attributes()}
-    g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
-    g6, p6, sh6 = F._modstall_prologue(*fields)
-    for name, launch, plain, nplanes, nflags in (
-            ("mincog", lambda: F._launch(
-                F.vessel_icing_mincog_fused, F._PLANES, p5, (g5, sh5, sk5),
-                decay, vsca, 1),
-             lambda trips=None: F._mincog_plain(g5, p5, sh5, sk5, vsca, 1,
-                                                decay, trips), 17, 3),
-            ("modstall", lambda: F._launch(
-                F.vessel_icing_modstall_fused, F._MS_PLANES, p6, (g6, sh6),
-                decay, vsca, None),
-             lambda trips=None: F._modstall_plain(g6, p6, sh6, vsca, decay,
-                                                  trips), 12, 2)):
+    runs = icing_runs(fields, 1)
+    for name, (launch, plain, nplanes, nflags) in runs.items():
         for _ in range(20):               # the card at its clocks
             launch()
         clocks = [sm_clock()]
@@ -1816,13 +1894,13 @@ def phase_icing_times(dev, smi: str, copy_gbps: float, f32_rate: float,
             f"{model['tiled']:.3f}: predicted speed-up "
             f"{model['speedup']:.2f}x; measured over the per-point "
             f"kernels' median {before:.3f} ms: {before / kms:.2f}x")
-    del p5, p6, g5, g6, fields
+    del runs, fields
 
     # one request, split (host clock around synchronised steps)
-    stager = staging.HostStager(11)
+    stager = staging.HostStager(11, pin=True)
     keys = ("decode", "h2d", "overland_mertins", "mincog_prologue",
             "mincog_kernel", "modstall_prologue", "modstall_kernel",
-            "stack", "d2h", "encode", "total")
+            "d2h", "encode", "total")
     parts = {k: [] for k in keys}
     for _ in range(request_reps):
         marks = []
@@ -1832,9 +1910,9 @@ def phase_icing_times(dev, smi: str, copy_gbps: float, f32_rate: float,
             marks.append(time.perf_counter())
 
         mark()
-        host = stager.decode(*args)
+        stager.decode(*args)
         mark()
-        fields = staging._icing_upload_step(host, dev)
+        fields = staging._icing_upload_step(stager, dev)
         mark()
         outs = staging._icing_products(fields, *ICING_SCAL, 1,
                                        ("overland", "mertins"))
@@ -1849,16 +1927,15 @@ def phase_icing_times(dev, smi: str, copy_gbps: float, f32_rate: float,
         ms = F._launch(F.vessel_icing_modstall_fused, F._MS_PLANES, p6,
                        (g6, sh6), decay, vsca, None)
         mark()
-        buf = staging._icing_stack(outs + [Field(ms, g6), Field(mc, g5)])
+        fetched = staging._icing_fetch(
+            outs + [Field(ms, g6), Field(mc, g5)], stager)
         mark()
-        host = staging._icing_fetch(buf, 4, ICING_SHAPE)
-        mark()
-        staging._icing_encode_step(*host, staging.ICING_PRODUCTS, 1e35)
+        staging._encode_planes(fetched, staging.ICING_PRODUCTS, 1e35)
         mark()
         for key, a, b in zip(keys, marks, marks[1:]):
             parts[key].append((b - a) * 1e3)
         parts["total"].append((marks[-1] - marks[0]) * 1e3)
-        del fields, outs, p5, p6, buf
+        del fields, outs, p5, p6, fetched
     split = {k: statistics.median(v) for k, v in parts.items()}
     res["request_ms"] = split
     log(f"[{smi}] icing request (scattered undefs, alt 1) median of "
@@ -1871,31 +1948,11 @@ def icing_time_cases(dev) -> dict:
     """B5 and B6 on phase 9's request 1, held to their plain versions
     (values equal, NaN where NaN), then timed after 20 launches that bring
     the card to its clocks (CUDA events, median of 30)."""
-    import math
     import torch
-    from mi_fieldcalc_tpu_torch import staging
-    from mi_fieldcalc_tpu_torch.ops import icing_fused as F
-    from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
-    vs, alpha, zmin, zmax = ICING_SCAL
-    vsca = float(vs * math.cos(alpha))
-    decay = _mincog_decay(zmin, _number(zmin, zmax))
     _, args, _ = icing_requests()[0]
-    fields = staging._icing_upload_step(
-        staging.HostStager(11).decode(*args), dev)
-    g5, p5, sh5, sk5 = F._mincog_prologue(*fields, vs, alpha)
-    g6, p6, sh6 = F._modstall_prologue(*fields)
-    runs = {
-        "mincog": (lambda: F._launch(F.vessel_icing_mincog_fused, F._PLANES,
-                                     p5, (g5, sh5, sk5), decay, vsca, 1),
-                   lambda: F._mincog_plain(g5, p5, sh5, sk5, vsca, 1, decay,
-                                           None)),
-        "modstall": (lambda: F._launch(F.vessel_icing_modstall_fused,
-                                       F._MS_PLANES, p6, (g6, sh6), decay,
-                                       vsca, None),
-                     lambda: F._modstall_plain(g6, p6, sh6, vsca, decay,
-                                               None))}
     out = {}
-    for name, (kernel, plain) in runs.items():
+    for name, (kernel, plain, _, _) in icing_runs(icing_fields(args, dev),
+                                                  1).items():
         got, ref = kernel(), plain()
         same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
         for _ in range(20):
@@ -2154,7 +2211,7 @@ def phase_request_trace(dev, smi: str) -> dict:
     else:
         log("no device events in the torch.profiler trace: the busy share "
             "is taken from CUDA events around H2D, kernel and D2H")
-        stager = staging._stager_cache(4, 1e35)
+        stager = staging._stager_cache(4, 1e35, True)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2166,9 +2223,9 @@ def phase_request_trace(dev, smi: str) -> dict:
         out_dev = staging._compute(staged, ad)
         ev[3].record()
         ev[4].record()
-        fetched = staging._fetch(out_dev)
-        ev[5].record()
-        staging._encode_step(*fetched, 1e35)
+        fetched = staging._fetch(out_dev, stager)
+        ev[5].record(stager.streams(dev)[1])
+        staging._encode_step(fetched, 1e35)
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t0) * 1e3
         parts = [ev[k].elapsed_time(ev[k + 1]) for k in (0, 2, 4)]
@@ -2466,6 +2523,445 @@ def phase_ensemble(dev, smi: str, reps=10) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 12
+#: the stream: 6 headline requests from their own seeds, masked and
+#: all-defined mixed so the route switches mid-stream
+STREAM_STEPS = ((21, True, "column"), (22, False, "column"),
+                (23, True, "scattered"), (24, True, "column"),
+                (25, False, "column"), (26, True, "scattered"))
+#: bytes of the page-locked buffer whose copies give the transfer rates
+RATE_BYTES = 2 ** 30
+
+
+def kernel_wrappers() -> dict:
+    """Every path kernel's wrapper, by name: their ``launches`` counts."""
+    from mi_fieldcalc_tpu_torch.ops import fused, fused_suite
+    from mi_fieldcalc_tpu_torch.ops import icing_fused, vertical_fused
+    return {w.__name__: w for w in (
+        fused.derived_fields_fused, vertical_fused.hlevel_to_plevel_fused,
+        fused_suite.alevel_suite_fused, fused_suite.hlevel_suite_fused,
+        icing_fused.vessel_icing_mincog_fused,
+        icing_fused.vessel_icing_modstall_fused)}
+
+
+def zero_launches() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def copy_rates(dev, smi: str, nbytes=RATE_BYTES, reps=5) -> dict:
+    """H2D and D2H of one ``nbytes`` page-locked buffer, and of one
+    pageable buffer (touched first), each way (CUDA events, median of
+    ``reps``), in GB/s; and the time to page-lock the buffer."""
+    import torch
+    t0 = time.perf_counter()
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    alloc_ms = (time.perf_counter() - t0) * 1e3
+    pageable = torch.zeros(nbytes, dtype=torch.uint8)
+    d = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    res = {"bytes": nbytes, "pin_alloc_ms": alloc_ms}
+    for key, fn in (
+            ("pinned_h2d", lambda: d.copy_(pinned, non_blocking=True)),
+            ("pinned_d2h", lambda: pinned.copy_(d, non_blocking=True)),
+            ("pageable_h2d", lambda: d.copy_(pageable)),
+            ("pageable_d2h", lambda: pageable.copy_(d))):
+        ms = statistics.median(time_ms(fn, reps))
+        res[key + "_ms"] = ms
+        res[key + "_gbps"] = nbytes / ms / 1e6
+    del pinned, pageable, d
+    log(f"[{smi}] copies of {nbytes / 2**30:.0f} GiB: page-locked H2D "
+        f"{res['pinned_h2d_gbps']:.2f} GB/s, D2H "
+        f"{res['pinned_d2h_gbps']:.2f} GB/s; pageable H2D "
+        f"{res['pageable_h2d_gbps']:.2f} GB/s, D2H "
+        f"{res['pageable_d2h_gbps']:.2f} GB/s; page-locking the buffer "
+        f"{alloc_ms:.1f} ms")
+    return res
+
+
+def identical_dicts(got: dict, ref: dict, label: str) -> None:
+    """Two sentinel dicts equal byte for byte, key by key, in order."""
+    if list(got) != list(ref):
+        raise AssertionError(f"{label}: keys {list(got)} != {list(ref)}")
+    for name, r in ref.items():
+        g = got[name]
+        if g.dtype != r.dtype or g.shape != r.shape or not np.array_equal(
+                g.view(np.uint32), r.view(np.uint32)):
+            raise AssertionError(f"{label} {name}: not byte for byte the "
+                                 f"serial entry's")
+
+
+def overlap_split(dev, steps) -> dict:
+    """The serving request as ``run_derived_fields_np`` runs it, on the
+    calling thread's stager, timed on the host clock with no
+    synchronisation between its steps: decode, the queued upload, kernel
+    and chunked fetch, and per chunk the wait for its copy and its encode.
+    Then the last request's fetched planes encoded again in one call and
+    in its chunks, in turns."""
+    import torch
+    from mi_fieldcalc_tpu_torch import native, staging
+    stager = staging._stager_cache(4, 1e35, True)
+    rows = []
+    for s in steps:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        host, ad = staging._decode_step(s, stager, 1e35)
+        t1 = time.perf_counter()
+        fetched = staging._fetch(
+            staging._compute(staging._upload_step(host, dev), ad), stager)
+        t2 = time.perf_counter()
+        wait = enc = 0.0
+        ny, nx = fetched.values.shape[-2:]
+        for lo, hi, ev in fetched.chunks:
+            a = time.perf_counter()
+            if ev is not None:          # None: a CPU rehearsal
+                ev.synchronize()
+            b = time.perf_counter()
+            native.encode_trim_batch(fetched.values[lo:hi], fetched.masks,
+                                     ny, nx, fetched.mask_map[lo:hi], 1e35)
+            wait += b - a
+            enc += time.perf_counter() - b
+        rows.append({"decode": (t1 - t0) * 1e3, "enqueue": (t2 - t1) * 1e3,
+                     "wait": wait * 1e3, "encode": enc * 1e3,
+                     "total": (time.perf_counter() - t0) * 1e3})
+    one, chunked = [], []
+    for _ in range(3):
+        a = time.perf_counter()
+        native.encode_trim_batch(fetched.values, fetched.masks, ny, nx,
+                                 fetched.mask_map, 1e35)
+        b = time.perf_counter()
+        staging._encode_step(fetched, 1e35)
+        one.append((b - a) * 1e3)
+        chunked.append((time.perf_counter() - b) * 1e3)
+    return {"requests": rows, "chunks": len(fetched.chunks),
+            "median": {k: round(statistics.median(r[k] for r in rows), 2)
+                       for k in rows[0]},
+            "encode_one_ms": statistics.median(one),
+            "encode_chunked_ms": statistics.median(chunked),
+            "encode_one_ms_all": one, "encode_chunked_ms_all": chunked}
+
+
+def fresh_touch_ms(ny: int, nx: int, nlev: int, planes: int) -> dict:
+    """Host ms to write ``planes`` fresh float32 ``[nlev, ny, nx]`` arrays
+    once (the pages faulted in, as the encode's fresh outputs are) and to
+    write them again (the pages resident)."""
+    arrays = [np.empty((nlev, ny, nx), np.float32) for _ in range(planes)]
+    t0 = time.perf_counter()
+    for a in arrays:
+        a.fill(1.0)
+    t1 = time.perf_counter()
+    for a in arrays:
+        a.fill(2.0)
+    t2 = time.perf_counter()
+    return {"fresh_ms": (t1 - t0) * 1e3, "again_ms": (t2 - t1) * 1e3}
+
+
+def phase_stream(dev, smi: str, reps=10) -> dict:
+    """``stream_derived_fields_np`` over STREAM_STEPS at 32x719x929: the
+    page-locked and pageable copy rates of this host; the serving
+    request's own steps as they overlap, and what fresh output pages cost;
+    the serial entry on every step; the stream twice (the first allocates
+    its stager pair), B1's launches counted over the first, every streamed
+    dict byte for byte the serial entry's; the time between yields; the
+    stream under ``torch.profiler`` (busy share, copies by direction, B1);
+    and B1 on step 1's inputs against its plain version."""
+    import os
+    import tempfile
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ops import fused
+    from mi_fieldcalc_tpu_torch.utils.profiling import device_events, trace
+    res = {"card": smi, "shape": [NLEV, NY, NX], "steps": len(STREAM_STEPS),
+           "host_cores": os.cpu_count(),
+           "affinity_cores": len(os.sched_getaffinity(0)),
+           "rates": copy_rates(dev, smi)}
+    steps = [make_inputs(NLEV, NY, NX, seed, undefs, kind)
+             for seed, undefs, kind in STREAM_STEPS]
+    probe = staging.HostStager(4)
+    routes = [staging._decode_step(s, probe, 1e35)[1] for s in steps]
+    del probe
+    if routes != [not u for _, u, _ in STREAM_STEPS]:
+        raise AssertionError(f"stream routes {routes}")
+
+    res["overlap"] = overlap_split(dev, steps[:3])
+    res["page_faults"] = fresh_touch_ms(NY, NX, NLEV, 12)
+    log(f"[{smi}] the serving request's own steps (no synchronisation "
+        f"between them), ms: {res['overlap']['median']}; encoding a "
+        f"fetched request in one call {res['overlap']['encode_one_ms']:.2f} "
+        f"ms, in its {res['overlap']['chunks']} chunks "
+        f"{res['overlap']['encode_chunked_ms']:.2f} ms; 12 fresh "
+        f"{NLEV}x{NY}x{NX} float32 planes written once "
+        f"{res['page_faults']['fresh_ms']:.2f} ms, again "
+        f"{res['page_faults']['again_ms']:.2f} ms")
+    refs, serial_ms = [], []
+    for s in steps:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        refs.append(staging.run_derived_fields_np(*s, device=dev))
+        torch.cuda.synchronize(dev)
+        serial_ms.append((time.perf_counter() - t0) * 1e3)
+    res["serial_steps_ms"] = serial_ms
+
+    def stream():
+        """The timed stream; its dicts are checked after the last yield,
+        so the time between yields is the stream's own."""
+        marks, outs = [time.perf_counter()], []
+        for out in staging.stream_derived_fields_np(steps, device=dev):
+            marks.append(time.perf_counter())
+            outs.append(out)
+        if len(outs) != len(steps):
+            raise AssertionError(f"the stream yielded {len(outs)} of "
+                                 f"{len(steps)}")
+        for k, out in enumerate(outs):
+            identical_dicts(out, refs[k], f"streamed step {k + 1}")
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    zero_launches()
+    first = stream()
+    res["launches"] = read_launches()
+    want = dict.fromkeys(res["launches"], 0)
+    want["derived_fields_fused"] = len(steps)
+    if res["launches"] != want:
+        raise AssertionError(f"stream launches {res['launches']}")
+    second = stream()
+    res["stream_first_ms"] = first
+    res["stream_ms"] = second
+    res["stream_total_ms"] = sum(second)
+    res["stream_per_step_ms"] = sum(second) / len(steps)
+    res["stream_steady_ms"] = statistics.median(second[1:])
+    log(f"[{smi}] stream of {len(steps)} steps at {NLEV}x{NY}x{NX} "
+        f"(routes {routes}), every streamed dict byte for byte the serial "
+        f"entry's; B1 launches {res['launches']['derived_fields_fused']}; "
+        f"ms between yields {[round(x, 2) for x in second]} (the first "
+        f"stream, allocating its stagers: "
+        f"{[round(x, 2) for x in first]}): {res['stream_per_step_ms']:.2f} "
+        f"ms a step over the whole stream, {res['stream_steady_ms']:.2f} "
+        f"ms in steady state; serial requests {serial_ms} ms; "
+        f"{res['host_cores']} host cores ({res['affinity_cores']} usable)")
+
+    # the stream under torch.profiler: the device's busy share
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d) as prof:
+            wall = sum(stream())
+        events = device_events(prof.trace_path)
+    if not events:
+        raise AssertionError("no device events in the stream's trace")
+    busy, end, by = 0.0, float("-inf"), {}
+    for name, cat, start, dur in events:
+        stop = start + dur
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        key = ("B1" if "derived_fields_kernel" in name else
+               "h2d" if "HtoD" in name else "d2h" if "DtoH" in name else
+               cat)
+        by[key] = by.get(key, 0.0) + dur / 1e3
+    res["trace"] = {"wall_ms": wall, "busy_ms": busy / 1e3,
+                    "busy_share": busy / 1e3 / wall, "by_kind_ms": by,
+                    "b1_share": by.get("B1", 0.0) / wall,
+                    "b1_events": sum("derived_fields_kernel" in e[0]
+                                     for e in events)}
+    # the launch counts above are the check; a trace may drop an event
+    if not res["trace"]["b1_events"]:
+        raise AssertionError("B1 not found in the stream's trace")
+    log(f"[{smi}] traced stream: device busy {busy / 1e3:.2f} ms of "
+        f"{wall:.2f} ms ({res['trace']['busy_share']:.2%}); B1 "
+        f"{res['trace']['b1_share']:.2%} ({res['trace']['b1_events']} of "
+        f"{len(steps)} launches in the trace); by kind {by}")
+    del refs
+
+    # B1 on step 1's inputs, against its plain version
+    stager = staging.HostStager(4, pin=True)
+    host, ad = staging._decode_step(steps[0], stager, 1e35)
+    staged = staging._upload_step(host, dev)
+    errs = compare_stacked(
+        fused.derived_fields_fused(*staged, all_defined=ad),
+        fused.derived_fields_plain(*staged, all_defined=ad),
+        "B1 stream step 1")
+    k = time_ms(lambda: fused.derived_fields_fused(*staged, all_defined=ad),
+                reps)
+    p = time_ms(lambda: fused.derived_fields_plain(*staged, all_defined=ad),
+                3)
+    res["b1"] = {"kernel_ms": statistics.median(k), "kernel_ms_all": k,
+                 "plain_ms": statistics.median(p),
+                 "max_abs_err": max(errs["max_abs"].values())}
+    log(f"[{smi}] B1 on stream step 1: {res['b1']['kernel_ms']:.4f} ms, "
+        f"plain {res['b1']['plain_ms']:.2f} ms")
+    return res
+
+
+# --------------------------------------------------------------- phase 13
+def api_modules():
+    """The drop-in api and its inputs' adapter (``tests/``)."""
+    _golden_modules()
+    import torch_api_cases
+    from mi_fieldcalc_tpu_torch import api
+    return api, torch_api_cases
+
+
+#: the api functions that run a kernel on CUDA: the kernel's wrapper and
+#: the plain operator of the same request
+API_KERNELS = {"vesselIcingMincog": ("vessel_icing_mincog_fused",
+                                     "vessel_icing_mincog", "mincog"),
+               "vesselIcingModStall": ("vessel_icing_modstall_fused",
+                                       "vessel_icing_modstall", "modstall")}
+
+
+def api_requests() -> dict:
+    """Every api function's call at 719x929: ``(arrays, scalars)``, the
+    scalars None where the function's golden case gives them.  The icing
+    functions take phase 9's request 1 (its physical wave periods; the
+    small cases' ones would put ~1.3% of this grid in the solvers' slow
+    band) with ICING_SCAL, MINCOG with alt 1."""
+    api, cases = api_modules()
+    _, args, alt = icing_requests()[0]
+    sal, _, xw, yw, at, _, sst, _, _, aice, _ = args
+    scal = dict(zip(("vs", "alpha", "zmin", "zmax"), ICING_SCAL))
+    req = {}
+    for name in cases.api_names(api.__all__):
+        if name in ("vesselIcingOverland", "vesselIcingMertins"):
+            req[name] = ((at, sst, xw, yw, sal, aice), {})
+        elif name == "vesselIcingModStall":
+            req[name] = (args, scal)
+        elif name == "vesselIcingMincog":
+            req[name] = (args, dict(scal, alt=alt))
+        else:
+            req[name] = (cases.api_inputs(name, ICING_SHAPE), None)
+    return req
+
+
+def api_run(name: str, request, device):
+    api, cases = api_modules()
+    arrays, scal = request
+    if scal is None:
+        return cases.api_call(api, name, arrays, device=device)
+    return getattr(api, name)(*arrays, **scal, device=device)
+
+
+def api_mismatch(got, ref, exact: bool):
+    """None where the api outputs agree (the same sentinel points; values
+    bit for bit where ``exact``, else within RTOL and 2e-6 of the field's
+    largest magnitude), else what differs."""
+    if got is None or ref is None:
+        return f"returned None (card: {got is None}, reference: "\
+               f"{ref is None})"
+    gs = got if isinstance(got, tuple) else (got,)
+    rs = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(gs, rs):
+        if g.shape != r.shape:
+            return f"shape {g.shape} != {r.shape}"
+        ug, ur = g == np.float32(1e35), r == np.float32(1e35)
+        if not np.array_equal(ug, ur):
+            return f"undefined points differ at {int((ug != ur).sum())}"
+        d = ~ur
+        if exact:
+            bad = int((g.view(np.uint32) != r.view(np.uint32)).sum())
+        elif d.any():
+            tol = RTOL * np.abs(r[d]) + 2e-6 * float(np.abs(r[d]).max())
+            bad = int((np.abs(g[d] - r[d]) > tol).sum())
+        else:
+            bad = 0
+        if bad:
+            return f"{bad} values differ"
+    return None
+
+
+def phase_api(dev, smi: str, copy_gbps: float, f32_rate: float,
+              reps=10) -> dict:
+    """Every drop-in api function once on the card at 719x929, the
+    kernels' launch counts zeroed before and read after (B5 and B6 once
+    each, no other kernel); each output then held to the same call on the
+    CPU (sentinels equal, values within RTOL and 2e-6 of the field's
+    largest magnitude), and vesselIcingMincog / vesselIcingModStall to the
+    plain operators on the card, bit for bit.  Then B5 and B6 alone on the
+    api's decoded inputs against their plain versions, with the operation
+    counts of these inputs."""
+    import torch
+    from mi_fieldcalc_tpu_torch import ops
+    from mi_fieldcalc_tpu_torch.ops.icing import _number
+    api, _ = api_modules()
+    requests = api_requests()
+    for name, req in requests.items():          # a warm-up of each op
+        api_run(name, req, dev)
+    torch.cuda.synchronize(dev)
+    outs, wall = {}, {}
+    zero_launches()
+    for name, req in requests.items():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        outs[name] = api_run(name, req, dev)
+        torch.cuda.synchronize(dev)
+        wall[name] = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    for wrapper, _, _ in API_KERNELS.values():
+        want[wrapper] = 1
+    if launches != want:
+        raise AssertionError(f"api launches {launches}, expected {want}")
+    log(f"[{smi}] api: {len(requests)} functions once each on the card at "
+        f"{ICING_SHAPE[0]}x{ICING_SHAPE[1]}, {sum(wall.values()):.1f} ms "
+        f"in all; launches {launches}")
+
+    failures, res = {}, {"card": smi, "wall_ms": wall,
+                         "launches": launches}
+    plain_route_ms = {}
+    for name, req in requests.items():
+        if name in API_KERNELS:
+            _, op, _ = API_KERNELS[name]
+            arrays, scal = req
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            ref = api._wrap(getattr(ops, op), 1e35, *arrays,
+                            scalars=tuple(scal.values()), device=dev)
+            torch.cuda.synchronize(dev)
+            plain_route_ms[name] = (time.perf_counter() - t0) * 1e3
+            bad = api_mismatch(outs[name], ref, exact=True)
+        else:
+            bad = api_mismatch(outs[name], api_run(name, req, "cpu"),
+                               exact=False)
+        if bad:
+            failures[name] = bad
+    if failures:
+        raise AssertionError(f"api outputs on the card differ: {failures}")
+    log(f"[{smi}] api: {len(requests) - len(API_KERNELS)} functions equal "
+        f"to the CPU's calls; vesselIcingMincog / vesselIcingModStall bit "
+        f"for bit the plain operators' on the card ("
+        + ", ".join(f"{n} {wall[n]:.2f} ms, plain route "
+                    f"{plain_route_ms[n]:.2f} ms" for n in API_KERNELS)
+        + ")")
+
+    # B5 and B6 alone on the api's decoded inputs
+    number = _number(*ICING_SCAL[2:])
+    arrays, scal = requests["vesselIcingMincog"]
+    fields = [api._decode(np.ascontiguousarray(a, np.float32), 1e35, dev)
+              for a in arrays]
+    runs = icing_runs(fields, scal["alt"])
+    for name, (_, _, key) in API_KERNELS.items():
+        launch, plain, nplanes, nflags = runs[key]
+        if not same_bits(launch(), plain()).all():
+            raise AssertionError(f"{name}: the kernel differs from its plain "
+                                 f"version on the api's inputs")
+        trips = {}
+        plain(trips)
+        k = time_ms(launch, reps)
+        p = time_ms(plain, 1, warmup=False)
+        bound = icing_bound(trips, number, fields[0].values.numel(), nplanes,
+                            nflags, copy_gbps, f32_rate,
+                            scal["alt"] if key == "mincog" else None)
+        res[key] = {
+            "api_ms": wall[name], "plain_route_ms": plain_route_ms[name],
+            "kernel_ms": statistics.median(k), "kernel_ms_all": k,
+            "plain_ms": statistics.median(p), "max_abs_err": 0.0,
+            "bytes": bound["bytes"], "ops": bound["ops"]}
+        log(f"[{smi}] {name} on the api's inputs: kernel "
+            f"{statistics.median(k):.4f} ms, plain "
+            f"{statistics.median(p):.1f} ms; the api call {wall[name]:.2f} "
+            f"ms")
+    return res
+
+
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
@@ -2641,6 +3137,10 @@ def main() -> int:
     goldens = phase_goldens(dev)
     configs = phase_configs(dev, smi)
     ens = phase_ensemble(dev, smi)
+    log("== phase 12: the streaming executor and the page-locked copies")
+    stream = phase_stream(dev, smi)
+    log("== phase 13: the drop-in api on the card")
+    api_res = phase_api(dev, smi, times["copy_gbps"], env["f32_rate"])
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -2654,7 +3154,8 @@ def main() -> int:
         "probes": {"max_abs_err": probe_err, **probes},
         "request_trace": request_trace,
         "surface": {"goldens": goldens, "configs": configs,
-                    "ensemble": ens}, "wall_s": wall}))
+                    "ensemble": ens}, "stream": stream, "api": api_res,
+        "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -2716,6 +3217,17 @@ def main() -> int:
         **bound(layout_bytes(*ENSEMBLE_SHAPE[1:], False),
                 OPS_B1_POINT * int(np.prod(ENSEMBLE_SHAPE[1:]))),
     }, {
+        "name": "derived_fields",
+        "path": "stream_derived_fields_np",
+        "route": "cuda",
+        "source": src + "derived_fields.cu",
+        "replaces": ref + "fused.py:301",
+        "launches": stream["launches"]["derived_fields_fused"],
+        "max_abs_err": stream["b1"]["max_abs_err"],
+        "ms": stream["b1"]["kernel_ms"],
+        "plain_ms": stream["b1"]["plain_ms"],
+        **bound(layout_bytes(NLEV, NY, NX, False), OPS_B1_POINT * pts1),
+    }, {
         "name": "vertical_interp",
         "route": "cuda",
         "source": src + "vertical_interp.cu",
@@ -2762,7 +3274,20 @@ def main() -> int:
         "ms": icing_times[name]["kernel_ms"],
         "plain_ms": icing_times[name]["plain_ms"],
         **bound(icing_times[name]["bytes"], icing_times[name]["ops"]),
-    } for name in ("mincog", "modstall")]
+    } for name in ("mincog", "modstall")] + [{
+        "name": f"vessel_icing_{key}",
+        "path": f"api.{name}",
+        "route": "cuda",
+        "source": src + "vessel_icing.cu",
+        "replaces": ref + ("icing_fused.py:69" if key == "mincog"
+                           else "icing_fused.py:186"),
+        "launches": api_res["launches"][wrapper],
+        "max_abs_err": api_res[key]["max_abs_err"],
+        "ms": api_res[key]["kernel_ms"],
+        "plain_ms": api_res[key]["plain_ms"],
+        "api_call_ms": api_res[key]["api_ms"],
+        **bound(api_res[key]["bytes"], api_res[key]["ops"]),
+    } for name, (wrapper, _, key) in API_KERNELS.items()]
     grid = probes["solver"]["grid"]
     p1 = probes["copy_masked"]
     kernels += [{

@@ -272,8 +272,18 @@ def hlevel_suite_stacked(t: Field, q: Optional[Field], rh: Optional[Field],
     tensors, :func:`hlevel_suite_plain` on CPU tensors.  ``alevel`` and
     ``blevel`` are validated per level (``bad a/b level``), first, as the
     JAX entry does."""
+    _check_coefficients("hlevel_suite_fused", alevel, blevel)
+    return _hlevel_suite_stacked(t, q, rh, ps, alevel, blevel, reqs,
+                                 all_defined)
+
+
+def _hlevel_suite_stacked(t: Field, q: Optional[Field], rh: Optional[Field],
+                          ps: Field, alevel, blevel, reqs,
+                          all_defined: bool = False) -> SuiteStacked:
+    """:func:`hlevel_suite_stacked` for coefficients already checked on
+    the host (the staging route checks its numpy ones before the upload,
+    so no device tensor is copied back for it)."""
     name = "hlevel_suite_fused"
-    _check_coefficients(name, alevel, blevel)
     q, rh = _check_inputs(name, t, q, rh, reqs)
     nlev, ny, nx = t.values.shape
     require(tuple(torch.as_tensor(alevel).shape) == (nlev,)

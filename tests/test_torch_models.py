@@ -155,8 +155,9 @@ def test_ensemble_summary_rejects_unported_options():
 
 
 def test_port_modules_import_without_jax():
-    """Every module of the port, the golden adapter and ``chip_smoke``
-    import, and the new entry points run, with ``jax`` and the JAX package
+    """Every module of the port, its shim ``mi_fieldcalc_torch``, the
+    golden and api adapters and ``chip_smoke`` import, and the new entry
+    points and every api function run, with ``jax`` and the JAX package
     unimportable."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
@@ -169,7 +170,12 @@ def test_port_modules_import_without_jax():
         "names = [i.name for i in pkgutil.walk_packages(m.__path__,"
         " 'mi_fieldcalc_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke, torch_conformance\n"
+        "import chip_smoke, torch_conformance, torch_api_cases\n"
+        "import mi_fieldcalc_torch as fc\n"
+        "for n in torch_api_cases.api_names(fc.__all__):\n"
+        "    out = torch_api_cases.api_call(fc, n, torch_api_cases"
+        ".api_inputs(n, (5, 6)), device='cpu')\n"
+        "    assert out is not None, n\n"
         "from conformance_cases import CASE_BY_NAME, case_inputs\n"
         "for name in ('plevelthe_c1', 'kIndex_c2', 'shapiro2_undef',"
         " 'neighbour_c4', 'extremeValue_c3', 'pow10Field'):\n"

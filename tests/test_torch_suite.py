@@ -467,6 +467,34 @@ def test_run_hlevel_suite_np_routing_and_arguments():
         staging.run_hlevel_suite_np(tk, q, rh, ps, al, bl, device="cpu")
 
 
+@pytest.mark.parametrize("bad", ["negative a", "a = b = 0", "b > 1"])
+def test_bad_coefficients_same_error_numpy_and_tensor(bad, monkeypatch):
+    """The serving entry checks its numpy coefficients on the host before
+    the upload and never again from device tensors; a caller of the
+    wrapper with tensors gets the same error as the entry."""
+    tk, q, rh, ps, al, bl = _suite_np(seed=5)
+    k = {"negative a": 0, "a = b = 0": 1, "b > 1": 2}[bad]
+    al, bl = al.copy(), bl.copy()
+    al[k], bl[k] = {0: (-1.0, bl[k]), 1: (0.0, 0.0), 2: (al[k], 1.5)}[k]
+    with pytest.raises(ValueError) as from_numpy:
+        staging.run_hlevel_suite_np(tk, q, rh, ps, al, bl, temps=(3,),
+                                    device="cpu")
+    fields = [from_arrays(np.where(a == UNDEF, 0, a), a != UNDEF)
+              for a in (tk, q, rh, ps)]
+    with pytest.raises(ValueError) as from_tensors:
+        fused_suite.hlevel_suite_fused(*fields, torch.from_numpy(al),
+                                       torch.from_numpy(bl), temps=(3,))
+    assert str(from_numpy.value) == str(from_tensors.value) == \
+        "hlevel_suite_fused: bad a/b level"
+    # good numpy coefficients: the staging route never checks them again
+    checked = []
+    monkeypatch.setattr(fused_suite, "_check_coefficients",
+                        lambda *a: checked.append(a))
+    staging.run_hlevel_suite_np(tk, q, rh, ps, *_suite_np(seed=5)[4:],
+                                temps=(3,), device="cpu")
+    assert checked == []
+
+
 def test_suite_inputs_from_numpy():
     a = _stacks(nlev=2, ny=6, nx=7, seed=10)
     args = fused_suite.suite_inputs_from_numpy(
