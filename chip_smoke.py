@@ -114,7 +114,28 @@ Phases (any failure raises and exits non-zero):
    vesselIcingModStall bit for bit to the plain operators on the card; then
    B5 and B6 alone on the api's decoded inputs against their plain
    versions (the kernels line lists them again with ``"path":
-   "api.vesselIcingMincog"`` / ``"api.vesselIcingModStall"``).
+   "api.vesselIcingMincog"`` / ``"api.vesselIcingModStall"``);
+14. call-storm batching (``api.batch``, ``mi_fieldcalc_tpu_torch/batch.py``):
+   the 22-call storm of ``tools/perf_lab_batch.py`` at 96x128 and 719x929
+   eagerly, at its first flush (record, warm-up, capture of one CUDA
+   graph, replay) and replayed, every output byte for byte the eager api
+   call's, with the replay's split (record, stacking into the page-locked
+   block, H2D, replay, output copy, D2H); the icing storm (MINCOG alt 1
+   and 2, ModStall) on phase 9's request 1 in one graph, byte for byte the
+   eager calls and bit for bit the plain operators, the wrappers' counts
+   zeroed just before its first flush and read after it (the warm-up's and
+   the capture's launches), and B5 twice and B6 once in a
+   ``torch.profiler`` trace of one replay, which runs no Python: those are
+   the batch path's launches (the kernels line lists B5 and B6 a third
+   time, ``"path": "api.batch (CUDA graph replay)"``); six forecast cycles
+   at 719x929 with the input cache in four modes (fetch everything,
+   pipelined, a 3-of-22 subset, bfloat16), each cycle held to the eager
+   calls, the cache's hits and misses and the graphs' captures and
+   replays to the plan, a replayed cycle's device busy share; the device
+   memory each cached program keeps (its graph's pool and static inputs,
+   from the allocator's snapshot), and what clearing the program cache
+   returns.  A failed capture fails the phase; nothing
+   falls back to eager calls.
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -2962,6 +2983,529 @@ def phase_api(dev, smi: str, copy_gbps: float, f32_rate: float,
     return res
 
 
+# --------------------------------------------------------------- phase 14
+#: the storm's grids: BASELINE config 1's class and the AROME grid
+STORM_SHAPES = ((96, 128), ICING_SHAPE)
+#: forecast cycles a mode runs, and the outputs a subset consumer reads
+CYCLES = 6
+SUBSET = (0, 7, 15)
+
+
+def storm_lab():
+    from mi_fieldcalc_tpu_torch import api, batch
+    from mi_fieldcalc_tpu_torch.tools import perf_lab_batch
+    return api, batch, perf_lab_batch
+
+
+def host_ms(fn, dev, reps: int) -> list:
+    """Host-clock ms of ``fn`` between two synchronisations, ``reps``
+    times."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def identical(got, ref, label: str) -> None:
+    """Raise unless every output equals its reference byte for byte."""
+    got, ref = list(got), list(ref)
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} outputs, expected "
+                             f"{len(ref)}")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = np.asarray(g)
+        if g.shape != r.shape or g.dtype != r.dtype \
+                or g.tobytes() != r.tobytes():
+            raise AssertionError(f"{label}: output {i} differs from the "
+                                 f"eager call's")
+
+
+def bf16_reference(a: np.ndarray) -> np.ndarray:
+    """The eager float32 output as a bfloat16 fetch returns it: each value
+    rounded to bfloat16 and widened, the sentinel exact."""
+    import torch
+    r = torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    return np.where(a == np.float32(1e35), np.float32(1e35), r)
+
+
+def program_memory(dev, B) -> dict:
+    """Device memory each cached program keeps: its CUDA graph's private
+    pool (the caching allocator's segments of that pool: the capture's
+    intermediates and the static outputs) and its static input stacks,
+    read from the allocator's snapshot, with nothing allocated or freed
+    on the way; then the bytes the allocator returns once the program
+    cache is cleared."""
+    import gc
+    import torch
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg.get("device", dev.index) == dev.index:
+            pid = tuple(seg["segment_pool_id"])
+            pools[pid] = pools.get(pid, 0) + seg["total_size"]
+    programs = [o for o in gc.get_objects()
+                if isinstance(o, B._Program) and o.graph is not None]
+    rows = [{"calls": len(p.sig), "fetch_dtype": p.fetch_dtype,
+             "stacks": [list(shape) for shape, _ in p.specs],
+             "pool_bytes": pools.get(tuple(p.graph.pool()), 0),
+             "static_in_bytes": sum(t.numel() * t.element_size()
+                                    for t in p.static_in)}
+            for p in programs]
+    del programs
+    for r in rows:
+        r["bytes"] = r["pool_bytes"] + r["static_in_bytes"]
+    cached = B._compiled_batch.cache_info().currsize
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    B._compiled_batch.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = before - torch.cuda.memory_reserved(dev)
+    return {"programs": rows, "cached": cached, "freed_bytes": freed}
+
+
+def graphs_per_signature(stats: dict, flushes: int, label: str) -> None:
+    """Raise unless the batch captured one graph per new signature and
+    replayed once per flush."""
+    if stats["captures"] != stats["programs"] or stats["replays"] != flushes:
+        raise AssertionError(f"{label}: {stats}; expected one capture per "
+                             f"new signature and {flushes} replays")
+
+
+def storm_split(dev, g, ref, reps: int) -> dict:
+    """One storm's replay in its parts: record (host clock), then the
+    flush's stacking of the inputs into the page-locked block (host
+    clock), its H2D into the graph's static inputs, the replay and the
+    output copy (CUDA events around each), and D2H (host clock around
+    fetching every output), each the median of ``reps``; and the whole
+    flush on the host clock.  Each replay is held to ``ref`` byte for
+    byte."""
+    import torch
+    api, B, lab = storm_lab()
+    marks = {}
+    orig = {k: getattr(B._Program, k) for k in ("load", "replay",
+                                                 "outputs")}
+
+    def timed(name):
+        def run(self, *a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig[name](self, *a)
+            e1.record()
+            marks[name] = (e0, e1)
+            return out
+        return run
+
+    parts = {k: [] for k in ("record", "flush", "stack", "h2d", "replay",
+                             "output_copy", "d2h")}
+    real_ship = B._ship
+    stack_ms = []
+
+    def ship(arrays, device):
+        t = time.perf_counter()
+        out = real_ship(arrays, device)
+        stack_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for k in orig:
+        setattr(B._Program, k, timed(k))
+    B._ship = ship
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with api.batch(device=dev):
+                out = lab.storm(api, g, device=dev)
+                t1 = time.perf_counter()
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            got = lab.fetch_all(out)
+            t3 = time.perf_counter()
+            identical(got, ref, "storm split")
+            parts["record"].append((t1 - t0) * 1e3)
+            parts["flush"].append((t2 - t1) * 1e3)
+            parts["d2h"].append((t3 - t2) * 1e3)
+            parts["stack"].append(sum(stack_ms))
+            stack_ms.clear()
+            for k, name in (("h2d", "load"), ("replay", "replay"),
+                            ("output_copy", "outputs")):
+                parts[k].append(marks[name][0].elapsed_time(
+                    marks[name][1]))
+    finally:
+        for k, f in orig.items():
+            setattr(B._Program, k, f)
+        B._ship = real_ship
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def storm_case(dev, smi: str, shape, reps=5) -> dict:
+    """The 22-call storm at ``shape``: eagerly through the api on the
+    card, then its first flush in a batch (record, warm-up, capture and
+    one replay: one capture, one replay) and repeated flushes (replays
+    only), every output byte for byte the eager call's; the host-clock
+    times (median of ``reps`` after the warm-up), the replay's split and
+    the replay alone in CUDA events."""
+    import torch
+    api, B, lab = storm_lab()
+    g = lab.inputs(*shape)
+    eager = lab.fetch_all(lab.storm(api, g, device=dev))      # warm-up
+    eager_ms = host_ms(lambda: lab.fetch_all(lab.storm(api, g, device=dev)),
+                       dev, reps)
+
+    def batched():
+        with api.batch(device=dev):
+            out = lab.storm(api, g, device=dev)
+        return lab.fetch_all(out)
+
+    B._program_stats(reset=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with api.batch(device=dev):
+        out = lab.storm(api, g, device=dev)
+        t1 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    first = lab.fetch_all(out)
+    t3 = time.perf_counter()
+    first_ms = (t3 - t0) * 1e3
+    first_split = {"record": (t1 - t0) * 1e3, "flush": (t2 - t1) * 1e3,
+                   "d2h": (t3 - t2) * 1e3}
+    stats = B._program_stats()
+    if (stats["captures"], stats["replays"]) != (1, 1):
+        raise AssertionError(f"storm {shape}: first flush {stats}, expected "
+                             f"one capture and one replay")
+    identical(first, eager, f"storm {shape} first flush")
+    del first, out
+    replay_ms = []
+    for k in range(reps):                # each result checked, then dropped
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = batched()
+        torch.cuda.synchronize(dev)
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        identical(out, eager, f"storm {shape} replay {k}")
+        del out
+    kept = []
+    kept_ms = host_ms(lambda: kept.append(batched()), dev, reps)
+    for k, out in enumerate(kept):
+        identical(out, eager, f"storm {shape} kept replay {k}")
+    del kept
+    stats = B._program_stats()
+    if (stats["captures"], stats["replays"]) != (1, 1 + 2 * reps):
+        raise AssertionError(f"storm {shape}: {stats} after {2 * reps} "
+                             f"replays")
+    split = storm_split(dev, g, eager, reps)
+    res = {"shape": list(shape), "calls": len(eager),
+           "eager_ms": statistics.median(eager_ms), "eager_ms_all": eager_ms,
+           "first_flush_ms": first_ms, "first_flush_split_ms": first_split,
+           "replay_ms": statistics.median(replay_ms),
+           "replay_ms_all": replay_ms,
+           "replay_kept_ms": statistics.median(kept_ms),
+           "replay_kept_ms_all": kept_ms, "split_ms": split,
+           "graph_replay_event_ms": split["replay"],
+           "programs": B._program_stats()}
+    log(f"[{smi}] storm {shape[0]}x{shape[1]} ({len(eager)} calls): eager "
+        f"{res['eager_ms']:.3f} ms, first flush {first_ms:.3f} ms (record "
+        f"{first_split['record']:.3f}, warm-up + capture + replay "
+        f"{first_split['flush']:.3f}, D2H {first_split['d2h']:.3f}), replay "
+        f"{res['replay_ms']:.3f} ms ({res['eager_ms'] / res['replay_ms']:.2f}"
+        f"x; {res['replay_kept_ms']:.3f} ms with every result kept); "
+        f"split: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + " ms; every output byte for byte the eager call's")
+    return res
+
+
+def icing_storm_calls(api, args, dev):
+    """MINCOG with alt 1 and alt 2 and ModStall on one request."""
+    scal = dict(zip(("vs", "alpha", "zmin", "zmax"), ICING_SCAL))
+    return [api.vesselIcingMincog(*args, **scal, alt=1, device=dev),
+            api.vesselIcingMincog(*args, **scal, alt=2, device=dev),
+            api.vesselIcingModStall(*args, **scal, device=dev)]
+
+
+def icing_storm_case(dev, smi: str, reps=5) -> dict:
+    """The icing storm at 719x929 on phase 9's request 1, recorded in one
+    batch: its outputs held byte for byte to the eager api calls and bit
+    for bit to the plain operators on the card.  The wrappers count each
+    launch they make: zeroed just before the first flush, they read B5 4
+    and B6 2 after it (the eager warm-up's launches and the capture's);
+    a replay runs no Python, so one replay is traced with
+    ``utils.profiling.trace``, which must hold B5 twice and B6 once: those
+    are the batch path's launches."""
+    import tempfile
+    import torch
+    from mi_fieldcalc_tpu_torch import ops
+    from mi_fieldcalc_tpu_torch.utils.profiling import device_events, trace
+    api, B, _ = storm_lab()
+    _, args, _ = icing_requests()[0]
+    eager = icing_storm_calls(api, args, dev)
+    scal = ICING_SCAL
+    plain = [api._wrap(ops.vessel_icing_mincog, 1e35, *args,
+                       scalars=scal + (alt,), device=dev) for alt in (1, 2)]
+    plain.append(api._wrap(ops.vessel_icing_modstall, 1e35, *args,
+                           scalars=scal, device=dev))
+    identical(eager, plain, "icing storm, eager api against the plain "
+              "operators")
+
+    def batched():
+        with api.batch(device=dev):
+            out = icing_storm_calls(api, args, dev)
+        return [np.asarray(o) for o in out]
+
+    B._program_stats(reset=True)
+    zero_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    identical(batched(), eager, "icing storm first flush")
+    torch.cuda.synchronize(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    wrapped = read_launches()
+    want = dict.fromkeys(wrapped, 0)
+    want.update(vessel_icing_mincog_fused=4, vessel_icing_modstall_fused=2)
+    if wrapped != want:
+        raise AssertionError(f"icing storm first flush launches {wrapped}, "
+                             f"expected {want} (warm-up and capture)")
+    outs = []
+    replay_ms = host_ms(lambda: outs.append(batched()), dev, reps)
+    for k, out in enumerate(outs):
+        identical(out, eager, f"icing storm replay {k}")
+    stats = B._program_stats()
+    if (stats["captures"], stats["replays"]) != (1, 1 + reps):
+        raise AssertionError(f"icing storm: {stats}")
+    found = None
+    for attempt in range(3):
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d) as prof:
+                out = batched()
+                torch.cuda.synchronize(dev)
+            events = device_events(prof.trace_path)
+        identical(out, eager, "icing storm traced replay")
+        b5 = [e for e in events if "mincog_kernel" in e[0]]
+        b6 = [e for e in events if "modstall_kernel" in e[0]]
+        log(f"icing storm traced replay {attempt}: {len(events)} device "
+            f"events, B5 {len(b5)}, B6 {len(b6)}")
+        if len(b5) > 2 or len(b6) > 1:
+            raise AssertionError("the traced replay holds more icing "
+                                 "kernels than the storm launches")
+        if (len(b5), len(b6)) == (2, 1):
+            found = (b5, b6)
+            break
+    if found is None:
+        raise AssertionError("no trace of an icing replay held B5 twice "
+                             "and B6 once")
+    b5, b6 = found
+    launches = {"vessel_icing_mincog_fused": len(b5),
+                "vessel_icing_modstall_fused": len(b6)}
+    res = {"first_flush_ms": first_ms,
+           "replay_ms": statistics.median(replay_ms),
+           "replay_ms_all": replay_ms, "launches": launches,
+           "first_flush_launches": wrapped,
+           "trace_attempts": attempt + 1,
+           "mincog_trace_ms": [e[3] / 1e3 for e in b5],
+           "modstall_trace_ms": [e[3] / 1e3 for e in b6],
+           "max_abs_err": 0.0}
+    log(f"[{smi}] icing storm at {ICING_SHAPE[0]}x{ICING_SHAPE[1]}: first "
+        f"flush {first_ms:.3f} ms, replay "
+        f"{res['replay_ms']:.3f} ms; the wrappers' launches at the first "
+        f"flush {wrapped}; the replay's trace holds B5 "
+        f"{res['mincog_trace_ms']} ms and B6 {res['modstall_trace_ms']} "
+        f"ms; byte for byte the eager api calls, bit for bit the plain "
+        f"operators")
+    return res
+
+
+def cycle_args(base, lab, r: int):
+    g = list(base)
+    g[2], g[4] = lab.fresh_pair(np.random.default_rng(100 + r),
+                                *ICING_SHAPE)
+    return tuple(g)
+
+
+def refreshed(args):
+    """The cycle's two fresh inputs as new objects of the same values: the
+    input cache misses them again."""
+    return tuple(a.copy() if k in (2, 4) else a for k, a in enumerate(args))
+
+
+def forecast_cycles(dev, smi: str) -> dict:
+    """Six forecast cycles at 719x929 with ``cache_inputs=True`` and two
+    fresh inputs a cycle, in four modes: fetch everything (from a cleared
+    cache: the cold cycle ships every input, the later ones one 2-row
+    stack), pipelined (cycle i+1 flushed before cycle i is fetched), a
+    subset fetch of 3 of the 22 outputs, and fetch_dtype="bfloat16" (each
+    later mode passes the fresh inputs as new copies).  Every
+    cycle is held byte for byte to the eager calls (bfloat16: their
+    rounding, sentinels exact); the cache's hits and misses and the
+    graphs' captures and replays to the plan; ms per cycle (host clock
+    around the synchronised cycle) and a replayed cycle's device busy
+    share."""
+    import tempfile
+    import torch
+    from mi_fieldcalc_tpu_torch.utils.profiling import device_busy_ms, trace
+    api, B, lab = storm_lab()
+    base = lab.inputs(*ICING_SHAPE)
+    cycles = [cycle_args(base, lab, r) for r in range(CYCLES)]
+    refs = [lab.fetch_all(lab.storm(api, c, device=dev)) for c in cycles]
+    shipped = []
+    real_ship = B._ship
+
+    def ship(arrays, device):
+        shipped.append(len(arrays))
+        return real_ship(arrays, device)
+
+    def run(args, **kw):
+        with api.batch(cache_inputs=True, device=dev, **kw):
+            return lab.storm(api, args, device=dev)
+
+    B._ship = ship
+    res = {}
+    try:
+        B.clear_input_cache()
+        B.cache_stats(reset=True)
+        B._program_stats(reset=True)
+        ms, per = [], []
+        for r, args in enumerate(cycles):
+            shipped.clear()
+            before = B.cache_stats()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = lab.fetch_all(run(args))
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            identical(out, refs[r], f"cycle {r} (fetch everything)")
+            after = B.cache_stats()
+            hits = after["hits"] - before["hits"]
+            misses = after["misses"] - before["misses"]
+            want = (0, 14, [14]) if r == 0 else (12, 2, [2])
+            if (hits, misses, list(shipped)) != want:
+                raise AssertionError(
+                    f"cycle {r}: hits {hits}, misses {misses}, shipped "
+                    f"{shipped}; expected {want}")
+            per.append({"hits": hits, "misses": misses,
+                        "shipped_rows": list(shipped)})
+        stats = B._program_stats()
+        graphs_per_signature(stats, CYCLES, "fetch-everything cycles")
+        res["fetch_all"] = {"ms": ms, "steady_ms": statistics.median(
+            ms[1:]), "cache": per, "programs": stats}
+
+        B._program_stats(reset=True)
+        ms, outs = [], []
+        for r, args in enumerate(cycles):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            outs.append(run(refreshed(args)))
+            if r:
+                got = lab.fetch_all(outs[r - 1])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if r:
+                identical(got, refs[r - 1], f"cycle {r - 1} (pipelined)")
+                outs[r - 1] = got = None
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = lab.fetch_all(outs[-1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        identical(got, refs[-1], f"cycle {CYCLES - 1} (pipelined)")
+        del outs, got
+        # ms[r] for r in 1..5: cycle r's flush and cycle r-1's fetch, which
+        # queues behind it; ms[0] the first flush, ms[6] the last fetch
+        res["pipelined"] = {"ms": ms,
+                            "steady_ms": statistics.median(ms[1:CYCLES]),
+                            "programs": B._program_stats()}
+
+        B._program_stats(reset=True)
+        ms = []
+        for r, args in enumerate(cycles):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = run(refreshed(args))
+            got = api.fetch(*[out[i] for i in SUBSET])
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            identical(got, [refs[r][i] for i in SUBSET],
+                      f"cycle {r} (subset fetch)")
+        res["subset"] = {"ms": ms, "steady_ms": statistics.median(ms),
+                         "outputs": list(SUBSET),
+                         "programs": B._program_stats()}
+
+        B._program_stats(reset=True)
+        ms = []
+        for r, args in enumerate(cycles):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = lab.fetch_all(run(refreshed(args), fetch_dtype="bfloat16"))
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            identical(out, [bf16_reference(a) for a in refs[r]],
+                      f"cycle {r} (bfloat16 fetch)")
+        res["bfloat16"] = {"ms": ms, "steady_ms": statistics.median(ms[1:]),
+                           "programs": B._program_stats()}
+        for mode in ("pipelined", "subset", "bfloat16"):
+            graphs_per_signature(res[mode]["programs"], CYCLES, mode)
+        if res["bfloat16"]["programs"]["programs"] != 1:
+            raise AssertionError(f"bfloat16 cycles: "
+                                 f"{res['bfloat16']['programs']}")
+
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d) as prof:
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                out = lab.fetch_all(run(refreshed(cycles[-1])))
+                torch.cuda.synchronize(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = device_busy_ms(prof.trace_path)
+        identical(out, refs[-1], "traced cycle")
+        steady = res["fetch_all"]["steady_ms"]
+        res["traced_cycle"] = {"wall_ms": wall, "busy_ms": busy,
+                               "busy_share": busy / wall,
+                               "busy_share_untraced": busy / steady}
+    finally:
+        B._ship = real_ship
+        B.clear_input_cache()
+    log(f"[{smi}] forecast cycles at {ICING_SHAPE[0]}x{ICING_SHAPE[1]} "
+        f"(cache_inputs, 2 fresh inputs a cycle), ms a cycle (steady "
+        f"median): fetch everything {res['fetch_all']['steady_ms']:.3f} "
+        f"(cold {res['fetch_all']['ms'][0]:.3f}), pipelined "
+        f"{res['pipelined']['steady_ms']:.3f}, subset of 3 "
+        f"{res['subset']['steady_ms']:.3f}, bfloat16 "
+        f"{res['bfloat16']['steady_ms']:.3f}; device busy {busy:.3f} ms of "
+        f"a traced cycle's {wall:.3f} ms "
+        f"({res['traced_cycle']['busy_share']:.2%}; of a steady cycle's "
+        f"{res['traced_cycle']['busy_share_untraced']:.2%}); every cycle byte "
+        f"for byte the eager calls' (bfloat16: their rounding)")
+    return res
+
+
+def phase_batch(dev, smi: str) -> dict:
+    """Call-storm batching on the card: the 22-call storm at 96x128 and
+    719x929 and the icing storm as CUDA graphs against the eager api
+    calls, and six forecast cycles in four modes.  A failed capture or
+    replay fails the phase: there is no eager fallback."""
+    res = {"card": smi, "storms": [storm_case(dev, smi, s)
+                                   for s in STORM_SHAPES]}
+    res["icing"] = icing_storm_case(dev, smi)
+    res["cycles"] = forecast_cycles(dev, smi)
+    _, B, _ = storm_lab()
+    mem = res["program_memory"] = program_memory(dev, B)
+    for r in mem["programs"]:
+        log(f"[{smi}] program of {r['calls']} calls (stacks "
+            f"{r['stacks']}, fetch_dtype {r['fetch_dtype']}): graph pool "
+            f"{r['pool_bytes'] / 2**20:.1f} MiB + static inputs "
+            f"{r['static_in_bytes'] / 2**20:.1f} MiB")
+    log(f"[{smi}] {mem['cached']} cached programs hold "
+        f"{sum(r['bytes'] for r in mem['programs']) / 2**20:.1f} MiB on the "
+        f"card; clearing the program cache returned "
+        f"{mem['freed_bytes'] / 2**20:.1f} MiB")
+    return res
+
+
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
@@ -3141,6 +3685,8 @@ def main() -> int:
     stream = phase_stream(dev, smi)
     log("== phase 13: the drop-in api on the card")
     api_res = phase_api(dev, smi, times["copy_gbps"], env["f32_rate"])
+    log("== phase 14: call-storm batching on the card")
+    batch_res = phase_batch(dev, smi)
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -3155,7 +3701,7 @@ def main() -> int:
         "request_trace": request_trace,
         "surface": {"goldens": goldens, "configs": configs,
                     "ensemble": ens}, "stream": stream, "api": api_res,
-        "wall_s": wall}))
+        "batch": batch_res, "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -3287,7 +3833,19 @@ def main() -> int:
         "plain_ms": api_res[key]["plain_ms"],
         "api_call_ms": api_res[key]["api_ms"],
         **bound(api_res[key]["bytes"], api_res[key]["ops"]),
-    } for name, (wrapper, _, key) in API_KERNELS.items()]
+    } for name, (wrapper, _, key) in API_KERNELS.items()] + [{
+        "name": f"vessel_icing_{key}",
+        "path": "api.batch (CUDA graph replay)",
+        "route": "cuda",
+        "source": src + "vessel_icing.cu",
+        "replaces": ref + ("icing_fused.py:69" if key == "mincog"
+                           else "icing_fused.py:186"),
+        "launches": batch_res["icing"]["launches"][wrapper],
+        "max_abs_err": batch_res["icing"]["max_abs_err"],
+        "ms": statistics.median(batch_res["icing"][f"{key}_trace_ms"]),
+        "plain_ms": api_res[key]["plain_ms"],
+        **bound(api_res[key]["bytes"], api_res[key]["ops"]),
+    } for wrapper, _, key in API_KERNELS.values()]
     grid = probes["solver"]["grid"]
     p1 = probes["copy_masked"]
     kernels += [{

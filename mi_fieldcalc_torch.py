@@ -11,7 +11,9 @@ unchanged against the port with one import changed::
 Everything re-exports from :mod:`mi_fieldcalc_tpu_torch.api`, which keeps
 the binding's exact call signatures — including its ``shape(0) -> nx``
 convention (py_mi_fieldcalc.cc:88) — and the full ~70-function C++
-surface, with a keyword-only ``device`` (``"cuda"`` by default).
+surface, with a keyword-only ``device`` (``"cuda"`` by default), and the
+call-storm batching (``batch``, ``fetch``, ``Deferred``, ...): on CUDA a
+recorded storm runs as one CUDA graph.
 """
 
 from mi_fieldcalc_tpu_torch.api import *            # noqa: F401,F403

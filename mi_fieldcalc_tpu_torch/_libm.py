@@ -51,7 +51,8 @@ def pow_posc_f32(x: torch.Tensor, c) -> torch.Tensor:
     c_l2e = f32(c_d * _LOG2E)
     # maximum() propagates NaN, as jnp.maximum does
     x = torch.maximum(x.to(torch.float32),
-                      torch.tensor(f32(_MIN_NORMAL), device=x.device))
+                      torch.full((), f32(_MIN_NORMAL), dtype=torch.float32,
+                                 device=x.device))
     xi = x.view(torch.int32)
     e = ((xi >> 23) & 0xFF) - 126
     m = ((xi & 0x007FFFFF) | (126 << 23)).view(torch.float32)

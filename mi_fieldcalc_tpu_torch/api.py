@@ -16,22 +16,29 @@ and the plain operators on the CPU.  Every function takes a keyword-only
 ``device="cuda"``, which raises where CUDA is not available;
 ``device="cpu"`` runs everything on the host.
 
-The call-storm batching names (``batch``, ``clear_input_cache``,
-``cache_stats``, ``fetch``, ``Deferred``, ``BatchError``) are exported;
-the batching itself is not ported yet, so the callables raise.
+Inside a :func:`batch` context (:mod:`.batch`) every call records itself
+and returns a :class:`Deferred`; the storm runs as one program at the
+context's exit or at the first read of a result, on CUDA one CUDA graph
+per storm signature, replayed by later storms of the same signature.  A
+call must name the batch's device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from . import ops
+from .batch import (  # noqa: F401
+    BatchError, Deferred, active_batch, batch, cache_stats,
+    clear_input_cache, fetch, _resolve_device as _device,
+)
 from .field import Field, UNDEF, ValuesDefined, from_sentinel  # noqa: F401
-from .ops._harness import not_ported
 
 __all__ = [
-    # call-storm batching (mi_fieldcalc_tpu/batch.py; not ported yet)
+    # call-storm batching (batch.py): one device program per storm
     "batch", "clear_input_cache", "cache_stats", "fetch", "Deferred",
     "BatchError",
     # the 15 functions the reference's pybind11 module exposes
@@ -59,44 +66,6 @@ __all__ = [
 ]
 
 
-class BatchError(RuntimeError):
-    """A failed call-storm batch (:mod:`mi_fieldcalc_tpu.batch`)."""
-
-
-def _batch_stub(name: str):
-    def stub(*args, **kwargs):
-        raise not_ported("mi_fieldcalc_tpu.batch",
-                         f"call-storm batching ({name})")
-    stub.__name__ = stub.__qualname__ = name
-    return stub
-
-
-batch = _batch_stub("batch")
-clear_input_cache = _batch_stub("clear_input_cache")
-cache_stats = _batch_stub("cache_stats")
-fetch = _batch_stub("fetch")
-
-
-class Deferred:
-    """A batched call's result (:mod:`mi_fieldcalc_tpu.batch`); not
-    ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported("mi_fieldcalc_tpu.batch",
-                         "call-storm batching (Deferred)")
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("mi_fieldcalc_tpu_torch.api: device='cuda' but "
-                           "CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"mi_fieldcalc_tpu_torch.api: unsupported device "
-                         f"{dev}")
-    return dev
-
-
 def _decode(a: np.ndarray, undef: float, dev: torch.device) -> Field:
     return from_sentinel(torch.from_numpy(a).to(dev), undef)
 
@@ -107,14 +76,37 @@ def _encode(out, undef: float):
     return tuple(o.to_sentinel(undef).cpu().numpy() for o in out)
 
 
+def _canon(x):
+    """Hashable (program-key) form of a scalar parameter."""
+    return tuple(x) if isinstance(x, (list, tuple)) else x
+
+
+def _recording(dev: torch.device):
+    """The active batch, after checking that ``dev`` is its device; None
+    outside a batch."""
+    b = active_batch()
+    if b is not None:
+        b.check_device(dev)
+    return b
+
+
 def _wrap(op, undef, *arrays, scalars=(), kwscalars=None, lead_scalars=(),
           device="cuda"):
     """The py_wrap_2d equivalent: validate 2-D equal shapes, decode the
     sentinels on ``device``, run the operator there and encode.  Returns
     None on invalid input, like the reference binding.  ``lead_scalars``
     go BEFORE the fields (the reference's ``(compute, ...)``-first
-    signatures): ``op(*lead_scalars, *fields, *scalars, **kwscalars)``."""
+    signatures): ``op(*lead_scalars, *fields, *scalars, **kwscalars)``.
+
+    Inside a :func:`batch` context the call is RECORDED instead of run
+    (one device program for the whole storm, :mod:`.batch`)."""
     dev = _device(device)
+    b = _recording(dev)
+    if b is not None:
+        return b.record(op, float(undef), arrays,
+                        tuple(_canon(s) for s in scalars),
+                        tuple(sorted((kwscalars or {}).items())),
+                        tuple(_canon(s) for s in lead_scalars))
     npa = [np.ascontiguousarray(a, dtype=np.float32) for a in arrays]
     if npa[0].ndim != 2 or any(a.shape != npa[0].shape for a in npa[1:]):
         return None
@@ -204,15 +196,16 @@ def vesselIcingMertins(airtemp, seatemp, u, v, sal, aice,
 def _icing_modstall_auto(*args):
     # kernel B6 on CUDA tensors, the plain operator on the CPU (the JAX
     # module picks its kernel on the TPU only); both cold-started, so
-    # the encoded outputs agree where the gate is on
-    if args[0].values.device.type == "cuda":
+    # the encoded outputs agree where the gate is on.  A batch validates
+    # on meta tensors: the kernel's wrapper checks them without a launch
+    if args[0].values.device.type in ("cuda", "meta"):
         return ops.vessel_icing_modstall_fused(*args)
     return ops.vessel_icing_modstall(*args)
 
 
 def _icing_mincog_auto(*args):
     # kernel B5 on CUDA tensors, the plain operator on the CPU
-    if args[0].values.device.type == "cuda":
+    if args[0].values.device.type in ("cuda", "meta"):
         return ops.vessel_icing_mincog_fused(*args)
     return ops.vessel_icing_mincog(*args)
 
@@ -517,12 +510,42 @@ def constantOPERfield(compute: int, value: float, field,
                  kwscalars={"undef": undef}, device=device)
 
 
+@functools.lru_cache(maxsize=256)
+def _member_stack_op(op, nlead, nfields):
+    """A member reduction in the regular per-field call convention: the
+    members enter as ``nfields`` separate 2-D Fields and are stacked in
+    the program.  Inside :func:`batch` each member stays an individual
+    input: it dedups and caches like any other array and ships in the
+    shared same-shape stack."""
+    def run(*args, **kw):
+        lead = args[:nlead]
+        fs = args[nlead:nlead + nfields]
+        scal = args[nlead + nfields:]
+        stacked = Field(torch.stack([f.values for f in fs]),
+                        torch.stack([f.mask for f in fs]))
+        return op(*lead, stacked, *scal, **kw)
+    return run
+
+
 def _wrap_members(op, undef, fields, lead_scalars=(), scalars=(),
                   device="cuda"):
     """Ensemble wrapper: the member fields stacked on a leading axis,
     decoded on ``device`` and reduced there
-    (``op(*lead_scalars, stack, *scalars)``)."""
+    (``op(*lead_scalars, stack, *scalars)``).  Inside a :func:`batch`
+    context each member records as its own 2-D input
+    (:func:`_member_stack_op`), so Deferred members chain on the device
+    and concrete members ride the input cache."""
     dev = _device(device)
+    b = _recording(dev)
+    if b is not None:
+        fields = list(fields)
+        if not fields:
+            return None
+        return b.record(
+            _member_stack_op(op, len(lead_scalars), len(fields)),
+            float(undef), tuple(fields),
+            tuple(_canon(s) for s in scalars), (),
+            tuple(_canon(s) for s in lead_scalars))
     npa = [np.asarray(a, np.float32) for a in fields]
     if not npa or npa[0].ndim != 2 \
             or any(a.shape != npa[0].shape for a in npa[1:]):

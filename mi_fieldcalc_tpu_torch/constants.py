@@ -56,8 +56,17 @@ F_LEVEL_TABLE = np.array(
      1020], dtype=np.float32)
 
 
+#: device -> the EWT table on it
+_EWT = {}
+
+
 def _ewt(device) -> torch.Tensor:
-    return torch.as_tensor(EWT, device=device)
+    """The EWT table on ``device``, copied there at its first use and kept:
+    later uses copy no host data, so a CUDA graph can capture them."""
+    t = _EWT.get(device)
+    if t is None:
+        t = _EWT[device] = torch.as_tensor(EWT, device=device)
+    return t
 
 
 def ewt_index(t_celsius: torch.Tensor):

@@ -59,14 +59,14 @@ class Field:
         """The values with ``fill`` at undefined points: a safe input to a
         transcendental function."""
         return torch.where(self.mask, self.values,
-                           torch.tensor(f32(fill), dtype=self.values.dtype,
-                                        device=self.values.device))
+                           torch.full((), f32(fill), dtype=self.values.dtype,
+                                      device=self.values.device))
 
     def to_sentinel(self, undef: float = UNDEF) -> torch.Tensor:
         """Materialise the sentinel representation."""
         return torch.where(self.mask, self.values,
-                           torch.tensor(f32(undef), dtype=self.values.dtype,
-                                        device=self.values.device))
+                           torch.full((), f32(undef), dtype=self.values.dtype,
+                                      device=self.values.device))
 
 
 def from_sentinel(values, undef: float = UNDEF, device=None) -> Field:

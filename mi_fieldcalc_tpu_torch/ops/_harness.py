@@ -8,7 +8,7 @@ import torch
 from ..field import Field, f32
 
 __all__ = ["require", "and_masks", "out_field", "not_ported",
-           "check_tensor", "const", "div"]
+           "check_tensor", "const", "div", "bool_vector"]
 
 
 def require(cond: bool, message: str) -> None:
@@ -25,8 +25,19 @@ def not_ported(jax_function: str, what: str) -> NotImplementedError:
 
 def const(x, ref: torch.Tensor) -> torch.Tensor:
     """The float32 constant ``x`` as a 0-dim tensor on ``ref``'s device:
-    a divisor or dividend that keeps PyTorch's division IEEE."""
-    return torch.tensor(f32(x), dtype=torch.float32, device=ref.device)
+    a divisor or dividend that keeps PyTorch's division IEEE.  A fill on
+    the device, not a copy of host data, so a CUDA graph can capture it."""
+    return torch.full((), f32(x), dtype=torch.float32, device=ref.device)
+
+
+def bool_vector(flags, device) -> torch.Tensor:
+    """A short list of Python bools as a 1-D bool tensor on ``device``,
+    built by fills on the device (no copy of host data)."""
+    t = torch.zeros(len(flags), dtype=torch.bool, device=device)
+    for i, flag in enumerate(flags):
+        if flag:
+            t[i].fill_(True)
+    return t
 
 
 def div(a, b) -> torch.Tensor:
@@ -72,3 +83,4 @@ def check_tensor(fn: str, t, name: str, shape: tuple, dtype: torch.dtype,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} is not contiguous")
+

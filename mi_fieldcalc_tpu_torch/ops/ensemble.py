@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..field import Field, ValuesDefined, f32
-from ._harness import out_field, require
+from ._harness import bool_vector, out_field, require
 
 __all__ = ["sum_fields", "mean_value", "stddev_value", "extreme_value",
            "probability"]
@@ -28,9 +28,12 @@ def _stack(members) -> Field:
 
 
 def _member_axis(flags, s: Field) -> torch.Tensor:
-    """A ``[nmem]`` bool list as a tensor that broadcasts over a member
-    stack."""
-    t = torch.as_tensor(flags, dtype=torch.bool, device=s.mask.device)
+    """A ``[nmem]`` bool list (or tensor) as a tensor that broadcasts over
+    a member stack."""
+    if isinstance(flags, torch.Tensor):
+        t = flags.to(device=s.mask.device, dtype=torch.bool)
+    else:
+        t = bool_vector(flags, s.mask.device)
     return t.reshape((-1,) + (1,) * (s.mask.dim() - 1))
 
 
@@ -139,10 +142,9 @@ def probability(compute: int, members, limits: Sequence[float],
         passes = passes & (s.values < f32(limits[1] if check_between
                                           else limits[0]))
     if member_defined is not None:
-        member_sel = torch.as_tensor(
+        member_sel = bool_vector(
             [int(d) != int(ValuesDefined.NONE_DEFINED)
-             for d in member_defined], dtype=torch.bool,
-            device=s.mask.device)
+             for d in member_defined], s.mask.device)
     elif member_defined_mask is not None:
         member_sel = torch.as_tensor(member_defined_mask,
                                      device=s.mask.device).to(torch.bool)

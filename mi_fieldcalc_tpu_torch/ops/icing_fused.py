@@ -12,7 +12,13 @@ kernel and the plain version see the same prologue planes.  Then:
   ``mf_vessel_icing_modstall`` replaces ``_modstall_kernel``), count the
   launch in ``.launches`` and raise on a failed launch;
 * CPU tensors run the plain core (:func:`.icing._mincog_core`,
-  :func:`.icing._modstall_core`).
+  :func:`.icing._modstall_core`);
+* meta tensors run the checks and give the output's shape, with no launch
+  (the batch's validation).
+
+The kernel's decay table is built once per table and device and kept, so
+a CUDA graph that captures a launch reads a live tensor and the launch
+copies no host data.
 
 Both routes write 0 where the gate is off; the output mask is the gate.
 The TPU's tiling (``ty``, ``interpret``, the padded layout, the int8 bit
@@ -29,7 +35,9 @@ from typing import Optional
 import torch
 
 from ..field import Field
-from ._harness import check_tensor, not_ported, out_field, require
+from ._harness import (
+    check_tensor, not_ported, out_field, require,
+)
 from .icing import (
     _mincog_core, _mincog_decay, _mincog_gate, _mincog_require,
     _mincog_static, _modstall_core, _modstall_gate, _modstall_require,
@@ -146,8 +154,9 @@ def vessel_icing_modstall_plain(sal: Field, wave: Field, x_wind: Field,
 
 
 def _route(name: str, dev: torch.device) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
-    if dev.type == "cuda":
+    """True for the kernel (CUDA, and meta: its checks without a launch),
+    False for the plain version (CPU)."""
+    if dev.type in ("cuda", "meta"):
         return True
     if dev.type != "cpu":
         raise ValueError(f"{name}: no kernel for {dev}")
@@ -230,12 +239,23 @@ def vessel_icing_modstall_fused(sal: Field, wave: Field, x_wind: Field,
 vessel_icing_modstall_fused.launches = 0
 
 
-def _launch(entry, names, planes: dict, flags: tuple, decay, vsca: float,
-            alt: Optional[int]) -> torch.Tensor:
-    """One launch of B5 (``alt`` given) or B6 on the planes' device."""
-    from .._build import load_library
+#: (decay table, device) -> the table as a float32 tensor on the device
+_DECAY = {}
 
-    name = entry.__name__
+
+def _decay_tensor(decay, dev: torch.device) -> torch.Tensor:
+    """The decay table on ``dev``, built at its first use and kept."""
+    key = (tuple(decay), dev)
+    t = _DECAY.get(key)
+    if t is None:
+        t = _DECAY[key] = torch.tensor(decay, dtype=torch.float32,
+                                       device=dev)
+    return t
+
+
+def _launch_tensors(name: str, names, planes: dict, flags: tuple, decay):
+    """A launch's checks and tensors: ``(out, decay tensor)``, the table
+    None where nothing is launched (an empty grid or meta tensors)."""
     gate = flags[0]
     dev = gate.device
     shape = tuple(gate.shape)
@@ -248,9 +268,20 @@ def _launch(entry, names, planes: dict, flags: tuple, decay, vsca: float,
     for k, f in zip(("gate", "shallow", "skip0"), flags):
         check_tensor(name, f, k, shape, torch.bool, dev)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    if n == 0:
-        return out                   # an empty grid: nothing to launch
-    dec = torch.tensor(decay, dtype=torch.float32, device=dev)
+    if n == 0 or dev.type == "meta":
+        return out, None
+    return out, _decay_tensor(decay, dev)
+
+
+def _launch(entry, names, planes: dict, flags: tuple, decay, vsca: float,
+            alt: Optional[int]) -> torch.Tensor:
+    """One launch of B5 (``alt`` given) or B6 on the planes' device."""
+    from .._build import load_library
+
+    out, dec = _launch_tensors(entry.__name__, names, planes, flags, decay)
+    if dec is None:
+        return out               # an empty grid or meta: nothing to launch
+    gate, dev, n = flags[0], out.device, out.numel()
     ptrs = (ctypes.c_void_p * len(names))(
         *[planes[k].data_ptr() for k in names])
     lib = load_library()
@@ -267,6 +298,6 @@ def _launch(entry, names, planes: dict, flags: tuple, decay, vsca: float,
                 ptrs, gate.data_ptr(), flags[1].data_ptr(), dec.data_ptr(),
                 len(decay), vsca, out.data_ptr(), n, stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: "
+        raise RuntimeError(f"{entry.__name__}: kernel launch failed: "
                            f"{lib.mf_error_string(err).decode()}")
     return out

@@ -23,7 +23,7 @@ import torch
 
 from ..constants import cp, g, kappa, p0
 from ..field import UNDEF, Field, f32
-from ._harness import and_masks, require
+from ._harness import and_masks, const, require
 
 __all__ = ["fill_edges", "gradient", "relvort", "absvort", "divergence",
            "advection", "jacobian", "plevelgwind_xcomp", "plevelgwind_ycomp",
@@ -35,13 +35,14 @@ _HALF = f32(0.5)
 _G = float(g)
 
 
-def _vals(x) -> torch.Tensor:
-    """A map factor or coriolis argument as a tensor."""
+def _vals(x, ref: Field) -> torch.Tensor:
+    """A map factor or coriolis argument as a tensor; a number becomes a
+    float32 0-dim tensor on ``ref``'s device."""
     if isinstance(x, Field):
         return x.values
     if isinstance(x, torch.Tensor):
         return x
-    return torch.tensor(f32(x), dtype=torch.float32)
+    return const(x, ref.values)
 
 
 def _xm(a):  # value at (y, x-1)
@@ -82,7 +83,7 @@ def gradient(f: Field, xmapr, ymapr, compute: int) -> Field:
     1 df/dx, 2 df/dy, 3 |grad f|, 4 the laplacian."""
     require(compute in (1, 2, 3, 4), f"gradient: bad compute {compute}")
     _check_min_size(f, "gradient")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, f), _vals(ymapr, f)
     v, m = f.values, f.mask
     if compute == 1:
         out = _HALF * xm * (_xp(v) - _xm(v))
@@ -107,7 +108,7 @@ def gradient(f: Field, xmapr, ymapr, compute: int) -> Field:
 def relvort(u: Field, v: Field, xmapr, ymapr) -> Field:
     """Relative vorticity dv/dx - du/dy (FieldCalculations.cc:1843-1873)."""
     _check_min_size(u, "relvort")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, u), _vals(ymapr, u)
     out = (_HALF * xm * (_xp(v.values) - _xm(v.values))
            - _HALF * ym * (_yp(u.values) - _ym(u.values)))
     mask = _xm(v.mask) & _xp(v.mask) & _ym(u.mask) & _yp(u.mask)
@@ -117,9 +118,10 @@ def relvort(u: Field, v: Field, xmapr, ymapr) -> Field:
 def absvort(u: Field, v: Field, xmapr, ymapr, fcoriolis) -> Field:
     """Absolute vorticity (FieldCalculations.cc:1875-1908)."""
     _check_min_size(u, "absvort")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, u), _vals(ymapr, u)
     out = (_HALF * xm * (_xp(v.values) - _xm(v.values))
-           - _HALF * ym * (_yp(u.values) - _ym(u.values)) + _vals(fcoriolis))
+           - _HALF * ym * (_yp(u.values) - _ym(u.values))
+           + _vals(fcoriolis, u))
     mask = _xm(v.mask) & _xp(v.mask) & _ym(u.mask) & _yp(u.mask)
     return _finish(out, mask)
 
@@ -131,7 +133,7 @@ def divergence(u: Field, v: Field, xmapr, ymapr) -> Field:
     the vorticity stencil's inputs, while the value reads u[x+-1] and
     v[y+-1].  Kept for parity."""
     _check_min_size(u, "divergence")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, u), _vals(ymapr, u)
     out = (_HALF * xm * (_xp(u.values) - _xm(u.values))
            + _HALF * ym * (_yp(v.values) - _ym(v.values)))
     mask = _xm(v.mask) & _xp(v.mask) & _ym(u.mask) & _yp(u.mask)
@@ -143,7 +145,7 @@ def advection(f: Field, u: Field, v: Field, xmapr, ymapr,
     """Scalar advection -(u df/dx + v df/dy) * 3600*hours
     (FieldCalculations.cc:1942-1983)."""
     _check_min_size(f, "advection")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, f), _vals(ymapr, f)
     scale = f32(-3600.0 * hours)
     fv = f.values
     out = (u.values * _HALF * xm * (_xp(fv) - _xm(fv))
@@ -157,7 +159,7 @@ def thermal_front_parameter(t: Field, xmapr, ymapr) -> Field:
     """TFP = -grad|grad T| . grad T / |grad T| (FieldCalculations.cc:
     2266-2309), a radius-2 stencil through the filled |grad T| field."""
     _check_min_size(t, "thermalFrontParameter")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, t), _vals(ymapr, t)
     absdelt = gradient(t, xm, ym, 3)
     a, tv = absdelt.values, t.values
     dadx = _HALF * xm * (_xp(a) - _xm(a))
@@ -178,7 +180,7 @@ def jacobian(f1: Field, f2: Field, xmapr, ymapr) -> Field:
     """Jacobian df1/dx*df2/dy - df1/dy*df2/dx
     (FieldCalculations.cc:2424-2460)."""
     _check_min_size(f1, "jacobian")
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, f1), _vals(ymapr, f1)
     a, b = f1.values, f2.values
     df1dx = _HALF * xm * (_xp(a) - _xm(a))
     df1dy = _HALF * ym * (_yp(a) - _ym(a))
@@ -199,7 +201,7 @@ def plevelgwind_xcomp(z: Field, xmapr, ymapr, fcoriolis) -> Field:
     """ug = -(g/f) dz/dy (FieldCalculations.cc:638-672); the mask is the
     values' (the reference counts every point undefined, cc:664)."""
     _check_min_size(z, "plevelgwind_xcomp")
-    ym, fc = _vals(ymapr), _vals(fcoriolis)
+    ym, fc = _vals(ymapr, z), _vals(fcoriolis, z)
     out = f32(-0.5) * ym * (_yp(z.values) - _ym(z.values)) * _G / fc
     return _finish(out, _ring(z.mask))
 
@@ -207,7 +209,7 @@ def plevelgwind_xcomp(z: Field, xmapr, ymapr, fcoriolis) -> Field:
 def plevelgwind_ycomp(z: Field, xmapr, ymapr, fcoriolis) -> Field:
     """vg = +(g/f) dz/dx (FieldCalculations.cc:674-706)."""
     _check_min_size(z, "plevelgwind_ycomp")
-    xm, fc = _vals(xmapr), _vals(fcoriolis)
+    xm, fc = _vals(xmapr, z), _vals(fcoriolis, z)
     out = _HALF * xm * (_xp(z.values) - _xm(z.values)) * _G / fc
     return _finish(out, _ring(z.mask))
 
@@ -216,7 +218,7 @@ def plevelgvort(z: Field, xmapr, ymapr, fcoriolis) -> Field:
     """Geostrophic vorticity (g/f) * laplacian(z)
     (FieldCalculations.cc:708-743)."""
     _check_min_size(z, "plevelgvort")
-    xm, ym, fc = _vals(xmapr), _vals(ymapr), _vals(fcoriolis)
+    xm, ym, fc = _vals(xmapr, z), _vals(ymapr, z), _vals(fcoriolis, z)
     v = z.values
     out = (f32(0.25) * xm * xm * (_xm(v) - 2.0 * v + _xp(v))
            + f32(0.25) * ym * ym * (_ym(v) - 2.0 * v + _yp(v))) \
@@ -229,7 +231,8 @@ def ilevelgwind(mpot: Field, xmapr, ymapr,
     """Geostrophic wind from the Montgomery potential on an isentropic
     level (FieldCalculations.cc:1511-1549); returns ``(ug, vg)``."""
     _check_min_size(mpot, "ilevelgwind")
-    xm, ym, fc = _vals(xmapr), _vals(ymapr), _vals(fcoriolis)
+    xm, ym = _vals(xmapr, mpot), _vals(ymapr, mpot)
+    fc = _vals(fcoriolis, mpot)
     v = mpot.values
     ug = f32(-0.5) * ym * (_yp(v) - _ym(v)) / fc
     vg = _HALF * xm * (_xp(v) - _xm(v)) / fc
@@ -253,7 +256,7 @@ def plevelqvector(z: Field, t: Field, xmapr, ymapr, fcoriolis, p: float,
         tscale = 1.0
     ug = plevelgwind_xcomp(z, xmapr, ymapr, fcoriolis)
     vg = plevelgwind_ycomp(z, xmapr, ymapr, fcoriolis)
-    xm, ym = _vals(xmapr), _vals(ymapr)
+    xm, ym = _vals(xmapr, z), _vals(ymapr, z)
     c = f32(-287.0 / (float(p) * 100.0))
     uv, vv, tv = ug.values, vg.values, t.values
     dtdx = _HALF * xm * tscale * (_xp(tv) - _xm(tv))
@@ -292,16 +295,16 @@ def momentum_x_coordinate(v: Field, xmapr, fcoriolis,
     """m(x,y) = x + v*xmapr/fc with the coriolis parameter clamped away
     from zero (FieldCalculations.cc:2351-2386); x is the grid index."""
     _check_min_size(v, "momentumXcoordinate")
-    fc = _clamped_coriolis(_vals(fcoriolis), fcoriolis_min)
-    return Field(_coordinate(v, -1) + v.values * _vals(xmapr) / fc, v.mask)
+    fc = _clamped_coriolis(_vals(fcoriolis, v), fcoriolis_min)
+    return Field(_coordinate(v, -1) + v.values * _vals(xmapr, v) / fc, v.mask)
 
 
 def momentum_y_coordinate(u: Field, ymapr, fcoriolis,
                           fcoriolis_min: float) -> Field:
     """n(x,y) = y - u*ymapr/fc (FieldCalculations.cc:2388-2422)."""
     _check_min_size(u, "momentumYcoordinate")
-    fc = _clamped_coriolis(_vals(fcoriolis), fcoriolis_min)
-    return Field(_coordinate(u, -2) - u.values * _vals(ymapr) / fc, u.mask)
+    fc = _clamped_coriolis(_vals(fcoriolis, u), fcoriolis_min)
+    return Field(_coordinate(u, -2) - u.values * _vals(ymapr, u) / fc, u.mask)
 
 
 # -- Shapiro filter ----------------------------------------------------------
@@ -342,7 +345,7 @@ def shapiro2_filter(f: Field, all_defined=None,
     else:
         f1 = f.to_sentinel(undef)
         m = f.mask
-        quarter = torch.tensor(f32(0.25), device=f1.device)
+        quarter = torch.full((), f32(0.25), device=f1.device)
         zero = torch.zeros((), device=f1.device)
         s1 = torch.where(_xm(m) & m & _xp(m), quarter, zero)
         s2 = torch.where(_ym(m) & m & _yp(m), quarter, zero)

@@ -41,7 +41,7 @@ def th_thesat(th, p, pi):
     to different table gates.  The divisor is a tensor: PyTorch's CUDA
     division multiplies by the reciprocal of a Python-number divisor, which
     is not the IEEE quotient."""
-    tk = th * pi / torch.tensor(float(cp), dtype=th.dtype, device=th.device)
+    tk = th * pi / torch.full((), float(cp), dtype=th.dtype, device=th.device)
     et, ok, _, _ = esat_table(tk)
     qsat = float(eps) * et / p
     return th + float(xlh) * qsat / pi, ok

@@ -62,7 +62,7 @@ def plevel_interp(f: Field, p: Field, targets: Sequence[float],
     one = torch.ones((), dtype=torch.float32, device=fv.device)
     outs, masks = [], []
     for pt in targets:
-        ptf = torch.tensor(float(pt), dtype=torch.float32, device=fv.device)
+        ptf = torch.full((), float(pt), dtype=torch.float32, device=fv.device)
         cnt = (pv <= ptf).sum(dim=0, dtype=torch.int64)
         k = (cnt - 1).clamp(0, nlev - 2)
         k1 = k + 1

@@ -20,7 +20,7 @@ import numpy as np
 
 from conformance_cases import CASES, KIND_RANGES, UNDEF
 
-#: the api names that run no operator: the batching stubs and the enum
+#: the api names that run no operator: the batching names and the enum
 NOT_CALLS = ("batch", "clear_input_cache", "cache_stats", "fetch",
              "Deferred", "BatchError", "ValuesDefined")
 #: api function -> its first golden case
