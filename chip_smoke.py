@@ -93,6 +93,10 @@ Phases (any failure raises and exits non-zero):
    split into the 8 launches, the member stack and the reductions, and
    ``torch.cuda.max_memory_allocated``.  The kernels line lists B1 a
    second time for this path (``"path": "ensemble_derived_summary"``);
+   and the stencils that take map factors and coriolis
+   (``plevelgwind_xcomp`` / ``_ycomp``, ``plevelgvort``, ``ilevelgwind``,
+   ``momentum_x/y_coordinate``) called with numbers at 719x929, each bit
+   for bit the same call with full planes of those numbers;
 12. the stream: the page-locked and pageable copy rates of a 1 GiB buffer
    each way; the serving request's own steps as they overlap (decode,
    queueing, each chunk's wait and encode), its planes encoded in one call
@@ -135,7 +139,27 @@ Phases (any failure raises and exits non-zero):
    memory each cached program keeps (its graph's pool and static inputs,
    from the allocator's snapshot), and what clearing the program cache
    returns.  A failed capture fails the phase; nothing
-   falls back to eager calls.
+   falls back to eager calls;
+15. the sharded pipeline (``mi_fieldcalc_tpu_torch/parallel/``): (a) B1
+   with per-shard offsets at 32x719x929, masked and all-defined, on each
+   shard of the (2, 2), (4, 1) and (1, 4) grids: the shard's block and a
+   radius-2 halo ring cut from the global tensors (zeros, mask False,
+   beyond the physical edges, as the exchange delivers them), launched,
+   cropped and stitched, and the overlap geometry (the block alone, then
+   the seam strips patched in, rows before columns), each stitched result
+   bit for bit the unsharded launch at every point, the launches counted;
+   each shard's launches timed beside their bytes bound and the unsharded
+   launch, and the plain version under a shard's offsets; (b) the sharded
+   path at world size 1 under NCCL (``parallel.distributed.initialize``
+   on a free port of 127.0.0.1): ``derived_fields_fused_sharded`` with
+   overlap off and on, ``derived_fields_isobaric_sharded`` at phase 7's
+   137x719x929 -> 11, ``ensemble_summary_sharded`` at phase 11's
+   ensemble, and ``shapiro2_filter`` through ``run_sharded``, each equal
+   to its unsharded call, with B1 / B2 counted (1 / 0, 1 / 0, 1 / 1, 8 /
+   0); the process group is destroyed at the end.  The kernels line lists
+   B1 twice more (``"path": "derived_fields_fused_sharded"`` and ``"...
+   (overlap)"``): the launches of (b), the time and bound of shard (0, 0)
+   of (2, 2) in (a).  One card cannot show an exchange between ranks.
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -2377,6 +2401,53 @@ def config3_step(fields, maps):
                      "gradt", "laplacian"), outs))
 
 
+def phase_number_args(dev) -> dict:
+    """Number-valued map factors and coriolis on the card: each stencil
+    that takes them, called with numbers, equals bit for bit the same call
+    with full planes of those numbers (the route the goldens hold), masks
+    and values at every point; coriolis above and (clamped by the momentum
+    coordinates) below ``fcoriolis_min``, both signs."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import f32, from_sentinel
+    from mi_fieldcalc_tpu_torch import ops
+
+    ny, nx = ICING_SHAPE
+    rng = np.random.default_rng(5)
+    z = from_sentinel(sentinel(rng, 5000.0, 5800.0, (ny, nx), 0.01),
+                      device=dev)
+    wind = from_sentinel(sentinel(rng, -30.0, 30.0, (ny, nx), 0.01),
+                         device=dev)
+    calls = {
+        "plevelgwind_xcomp": lambda x, y, c: ops.plevelgwind_xcomp(
+            z, x, y, c),
+        "plevelgwind_ycomp": lambda x, y, c: ops.plevelgwind_ycomp(
+            z, x, y, c),
+        "plevelgvort": lambda x, y, c: ops.plevelgvort(z, x, y, c),
+        "ilevelgwind": lambda x, y, c: ops.ilevelgwind(z, x, y, c),
+        "momentum_x_coordinate": lambda x, y, c: ops.momentum_x_coordinate(
+            wind, x, c, 1e-4),
+        "momentum_y_coordinate": lambda x, y, c: ops.momentum_y_coordinate(
+            wind, y, c, 1e-4),
+    }
+    checked = []
+    for fc in (1.2e-4, -5e-5):
+        nums = (1.1e-5, 0.9e-5, fc)
+        planes = [torch.full((ny, nx), f32(x), device=dev) for x in nums]
+        for name, fn in calls.items():
+            got, ref = fn(*nums), fn(*planes)
+            for k, (g, r) in enumerate(zip(
+                    got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,))):
+                if not (torch.equal(g.mask, r.mask)
+                        and bool(same_bits(g.values, r.values).all())):
+                    raise AssertionError(f"{name} (fc {fc}) output {k}: "
+                                         f"numbers differ from planes")
+            checked.append(f"{name} fc={fc}")
+    log(f"number-valued map factors and coriolis == full planes bit for "
+        f"bit at {ny}x{nx}: {len(checked)} calls ({', '.join(calls)})")
+    return {"checked": checked}
+
+
 def phase_configs(dev, smi: str, reps=10) -> dict:
     """BASELINE configs 1 and 3 on the card, each output held to the port
     on the CPU on the same inputs (masks bitwise, values within RTOL: the
@@ -3506,6 +3577,342 @@ def phase_batch(dev, smi: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 15
+#: phase 15's process grids (gy, gx), cut from the headline 32x719x929
+SHARD_GRIDS = ((2, 2), (4, 1), (1, 4))
+
+
+def shard_plan(nyg: int, nxg: int, gy: int, gx: int, overlap: bool) -> list:
+    """B1's launches on every shard of a (gy, gx) cut of a global
+    ``(nyg, nxg)`` grid (``parallel/fused.py``'s geometry, from global
+    coordinates): each launch's input window ``win`` (rows, then columns,
+    half-open; its offsets are the window's origin), ``halo_rows``, and
+    the part of its output (``take``, window coordinates) that lands at
+    ``dest`` (global).  Without overlap a shard is one launch on its block
+    and a RADIUS halo ring; with it, the block alone, then the seam strips
+    of each side that has a neighbour, rows before columns."""
+    from mi_fieldcalc_tpu_torch.models.pipeline import RADIUS as R
+    from mi_fieldcalc_tpu_torch.parallel.mesh import block
+    L = 2 * R
+    plan = []
+    for iy in range(gy):
+        r0, r1 = block(nyg, gy, iy)
+        for ix in range(gx):
+            c0, c1 = block(nxg, gx, ix)
+            h, w = r1 - r0, c1 - c0
+
+            def add(kind, win, take, dest, halo):
+                plan.append({"shard": (iy, ix), "kind": kind, "win": win,
+                             "take": take, "dest": dest, "halo_rows": halo})
+
+            if not overlap:
+                add("halo", (r0 - R, r1 + R, c0 - R, c1 + R),
+                    (R, R + h, R, R + w), (r0, r1, c0, c1), R)
+                continue
+            hy = R if gy > 1 else 0
+            add("interior", (r0, r1, c0, c1), (0, h, 0, w),
+                (r0, r1, c0, c1), 0)
+            if r0 > 0:
+                add("top", (r0 - R, r0 + L, c0, c1), (R, 2 * R, 0, w),
+                    (r0, r0 + R, c0, c1), 0)
+            if r1 < nyg:
+                add("bottom", (r1 - L, r1 + R, c0, c1), (L - R, L, 0, w),
+                    (r1 - R, r1, c0, c1), 0)
+            if c0 > 0:
+                add("left", (r0 - hy, r1 + hy, c0 - R, c0 + L),
+                    (hy, hy + h, R, 2 * R), (r0, r1, c0, c0 + R), hy)
+            if c1 < nxg:
+                add("right", (r0 - hy, r1 + hy, c1 - L, c1 + R),
+                    (hy, hy + h, L - R, L), (r0, r1, c1 - R, c1), hy)
+    return plan
+
+
+def window(t, win, nyg: int, nxg: int):
+    """Rows ``win[0]:win[1]`` and columns ``win[2]:win[3]`` of ``t``'s
+    trailing axes, zeros (mask False) beyond the global grid: what the
+    halo exchange delivers there."""
+    a, b, c, d = win
+    out = t.new_zeros(tuple(t.shape[:-2]) + (b - a, d - c))
+    ya, yb, xa, xb = max(a, 0), min(b, nyg), max(c, 0), min(d, nxg)
+    out[..., ya - a:yb - a, xa - c:xb - c] = t[..., ya:yb, xa:xb]
+    return out
+
+
+def piece_args(args, win):
+    """The pipeline's arguments cut to a launch's window."""
+    from mi_fieldcalc_tpu_torch.field import Field
+    nyg, nxg = args[0].values.shape[-2:]
+    cut = [Field(window(f.values, win, nyg, nxg),
+                 window(f.mask, win, nyg, nxg)) for f in args[:5]]
+    return cut + [args[5], args[6], window(args[7], win, nyg, nxg),
+                  window(args[8], win, nyg, nxg)]
+
+
+def run_plan(launch, args, plan, all_defined: bool):
+    """Every launch of ``plan`` through ``launch(fields, alevel, blevel,
+    xmapr, ymapr, offsets, halo_rows)`` on windows of the global ``args``,
+    stitched into one :class:`DerivedFieldsStacked`."""
+    import torch
+    from mi_fieldcalc_tpu_torch.models.pipeline import DerivedFieldsStacked
+    shape = tuple(args[0].values.shape)
+    dev = args[0].values.device
+    values = torch.empty((12,) + shape, dtype=torch.float32, device=dev)
+    masks = torch.empty((2 if all_defined else 9,) + shape,
+                        dtype=torch.bool, device=dev)
+    for p in plan:
+        a = piece_args(args, p["win"])
+        st = launch(a[:5], a[5], a[6], a[7], a[8],
+                    (p["win"][0], p["win"][2]), p["halo_rows"])
+        ta, tb, tc, td = p["take"]
+        da, db, dc, dd = p["dest"]
+        values[..., da:db, dc:dd] = st.values[..., ta:tb, tc:td]
+        masks[..., da:db, dc:dd] = st.masks[..., ta:tb, tc:td]
+    return DerivedFieldsStacked(values, masks)
+
+
+def kept(st, take):
+    """The part ``take`` (rows, then columns, half-open) of a stacked
+    result."""
+    from mi_fieldcalc_tpu_torch.models.pipeline import DerivedFieldsStacked
+    ta, tb, tc, td = take
+    return DerivedFieldsStacked(st.values[..., ta:tb, tc:td],
+                                st.masks[..., ta:tb, tc:td])
+
+
+def same_stacked(got, ref, label: str) -> None:
+    """Masks equal and values bit for bit at every point (NaN where NaN);
+    raises otherwise."""
+    import torch
+    if not torch.equal(got.masks, ref.masks):
+        raise AssertionError(f"{label}: masks differ at "
+                             f"{int((got.masks != ref.masks).sum())} points")
+    bad = ~same_bits(got.values, ref.values)
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: {int(bad.sum())} values not bit for "
+                             f"bit")
+
+
+def same_defined(got, ref, label: str) -> None:
+    """Trees of Fields: masks equal, values bit for bit where defined."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field
+    if isinstance(ref, Field):
+        if not torch.equal(got.mask, ref.mask):
+            raise AssertionError(f"{label}: masks differ")
+        if not bool(same_bits(got.values[ref.mask],
+                              ref.values[ref.mask]).all()):
+            raise AssertionError(f"{label}: defined values not bit for bit")
+        return
+    for i, (g, r) in enumerate(zip(got, ref)):
+        same_defined(g, r, f"{label}[{i}]")
+
+
+def sharded_kernels(dev, smi: str, hbm: float, reps=5) -> dict:
+    """(a) B1 on each shard of SHARD_GRIDS at 32x719x929, masked and
+    all-defined, without and with overlap: stitched, equal to the unsharded
+    launch bit for bit at every point; each shard's launches timed (the
+    launch alone, queued behind a busy wait) beside a shard's bytes bound
+    and the unsharded launch."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.models.pipeline import RADIUS
+    from mi_fieldcalc_tpu_torch.ops import fused
+
+    res = {"card": smi, "grids": {}}
+    for ad in (False, True):
+        raw = make_inputs(NLEV, NY, NX, seed=11, undefs=not ad)
+        args = [from_sentinel(a, device=dev) for a in raw[:5]] + [
+            torch.as_tensor(a, device=dev) for a in raw[5:9]]
+        del raw
+        route = "all_defined" if ad else "masked"
+        whole = fused.derived_fields_fused(*args, None, all_defined=ad)
+        res[f"unsharded_{route}_ms"] = statistics.median(time_device_ms(
+            lambda: fused._launch(*args, ad), reps))
+
+        def launch(f, al, bl, xm, ym, offs, halo):
+            return fused.derived_fields_fused(
+                *f, al, bl, xm, ym, None, all_defined=ad,
+                global_shape=(NY, NX), grid_offsets=offs, halo_rows=halo)
+
+        for gy, gx in SHARD_GRIDS:
+            for overlap in (False, True):
+                plan = shard_plan(NY, NX, gy, gx, overlap)
+                fused.derived_fields_fused.launches = 0
+                same_stacked(run_plan(launch, args, plan, ad), whole,
+                             f"B1 on ({gy}, {gx}) {route}"
+                             f"{' overlap' if overlap else ''}")
+                n = fused.derived_fields_fused.launches
+                if n != len(plan):
+                    raise AssertionError(f"{len(plan)} launches planned, "
+                                         f"{n} counted")
+                pieces = []
+                for p in plan:
+                    a = piece_args(args, p["win"])
+                    offs = (p["win"][0], p["win"][2])
+                    placement = (*offs, NY, NX)
+                    ms = statistics.median(time_device_ms(
+                        lambda: fused._launch(*a, ad, placement), reps))
+                    hy, wx = (p["win"][1] - p["win"][0],
+                              p["win"][3] - p["win"][2])
+                    nbytes = layout_bytes(NLEV, hy, wx, ad)
+                    pieces.append({"shard": p["shard"], "kind": p["kind"],
+                                   "block": (hy, wx), "ms": ms,
+                                   "bytes": nbytes,
+                                   "bound_ms": nbytes / hbm * 1e3})
+                key = f"{gy}x{gx}_{route}{'_overlap' if overlap else ''}"
+                res["grids"][key] = {"launches": n, "pieces": pieces}
+                per = {}
+                for q in pieces:
+                    per.setdefault(q["shard"], []).append(q)
+                log(f"[{smi}] B1 on ({gy}, {gx}) {route}"
+                    f"{' with overlap' if overlap else ''}: stitched == "
+                    f"unsharded bit for bit; {n} launches; per shard "
+                    + "; ".join(
+                        f"{s}: " + " + ".join(
+                            f"{q['kind']} {q['block'][0]}x{q['block'][1]} "
+                            f"{q['ms']:.4f} ms (bound {q['bound_ms']:.4f})"
+                            for q in qs) for s, qs in per.items())
+                    + f"; unsharded {res[f'unsharded_{route}_ms']:.4f} ms")
+        del whole, args
+    # the plain version on shard (0, 0) of (2, 2), under its offsets
+    raw = make_inputs(NLEV, NY, NX, seed=11, undefs=True)
+    args = [from_sentinel(a, device=dev) for a in raw[:5]] + [
+        torch.as_tensor(a, device=dev) for a in raw[5:9]]
+    p = shard_plan(NY, NX, 2, 2, False)[0]
+    a = piece_args(args, p["win"])
+    kw = dict(global_shape=(NY, NX), grid_offsets=(-RADIUS, -RADIUS),
+              halo_rows=RADIUS)
+    # compared on the part kept: beyond the physical edges ps is 0, and
+    # the kernel's pow takes only positive pressures
+    same_stacked(kept(fused.derived_fields_fused(*a, None, **kw), p["take"]),
+                 kept(fused.derived_fields_plain(*a, None, **kw), p["take"]),
+                 "shard (0, 0) kernel == plain")
+    res["plain_shard_ms"] = statistics.median(time_ms(
+        lambda: fused.derived_fields_plain(*a, None, **kw), 3))
+    log(f"[{smi}] shard (0, 0) of (2, 2): kernel == plain bit for bit; "
+        f"plain {res['plain_shard_ms']:.3f} ms")
+    return res
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_path(dev, smi: str) -> dict:
+    """(b) The sharded path at world size 1 under NCCL: the fused pipeline
+    (overlap off and on), the isobaric path at phase 7's size, the
+    ensemble at phase 11's and one stencil through ``run_sharded``, each
+    equal to its unsharded call, with B1 / B2 counted."""
+    import torch
+    import torch.distributed as dist
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.models import (STANDARD_PLEVELS,
+                                               derived_fields_isobaric,
+                                               ensemble_derived_summary)
+    from mi_fieldcalc_tpu_torch.ops import fused, shapiro2_filter
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+    from mi_fieldcalc_tpu_torch.parallel import (distributed, grid_mesh,
+                                                 run_sharded)
+    from mi_fieldcalc_tpu_torch.parallel.fused import (
+        derived_fields_fused_sharded, derived_fields_isobaric_sharded,
+        ensemble_summary_sharded)
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    res = {"backend": dist.get_backend(), "launches": {}}
+    try:
+        grid = grid_mesh((1, 1, 1))
+
+        def counted(name, fn, want):
+            fused.derived_fields_fused.launches = 0
+            vf.hlevel_to_plevel_fused.launches = 0
+            out = fn()
+            torch.cuda.synchronize(dev)
+            got = {"derived_fields": fused.derived_fields_fused.launches,
+                   "vertical_interp": vf.hlevel_to_plevel_fused.launches}
+            res["launches"][name] = got
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, want {want}")
+            return out
+
+        raw = make_inputs(NLEV, NY, NX, seed=12, undefs=True)
+        args = [from_sentinel(a, device=dev) for a in raw[:5]] + [
+            torch.as_tensor(a, device=dev) for a in raw[5:]]
+        del raw
+        whole = fused.derived_fields_fused(*args)
+        for overlap in (False, True):
+            name = "fused_overlap" if overlap else "fused"
+            got = counted(name, lambda: derived_fields_fused_sharded(
+                grid, *args, overlap=overlap, stacked=True),
+                {"derived_fields": 1, "vertical_interp": 0})
+            same_stacked(got, whole, f"sharded pipeline, {name}")
+        stencil = run_sharded(shapiro2_filter, grid, 2, args[0])
+        same_defined(stencil, shapiro2_filter(args[0]),
+                     "run_sharded shapiro2_filter")
+        del whole, args, got, stencil
+
+        raw = make_column_inputs(*ISO_SHAPE, seed=3, undef_frac=0.005)
+        args = [from_sentinel(a, device=dev) for a in raw[:5]] + [
+            torch.as_tensor(a, device=dev) for a in raw[5:]]
+        del raw
+        got = counted("isobaric", lambda: derived_fields_isobaric_sharded(
+            grid, *args, plevels=STANDARD_PLEVELS),
+            {"derived_fields": 1, "vertical_interp": 1})
+        compare_fields_exact(got, derived_fields_isobaric(
+            *args, plevels=STANDARD_PLEVELS, fused=True),
+            "sharded isobaric path")
+        del args, got
+
+        args = ensemble_inputs(dev)
+        nmem = ENSEMBLE_SHAPE[0]
+        got = counted("ensemble", lambda: ensemble_summary_sharded(
+            grid, *args), {"derived_fields": nmem, "vertical_interp": 0})
+        same_defined(got, ensemble_derived_summary(*args, fused=True),
+                     "sharded ensemble summary")
+        del args, got
+        torch.cuda.synchronize(dev)
+    finally:
+        dist.destroy_process_group()
+        distributed._state.update(initialized=False, device=None)
+    log(f"[{smi}] the sharded path at world size 1 on {res['backend']}: "
+        f"fused (overlap off / on), shapiro2_filter through run_sharded, "
+        f"isobaric {ISO_SHAPE} -> {len(STANDARD_PLEVELS)}, ensemble "
+        f"{ENSEMBLE_SHAPE}: each equal to its unsharded call; launches "
+        f"{res['launches']}")
+    return res
+
+
+def shard_record(kern: dict, overlap: bool) -> dict:
+    """The kernels line's numbers for B1 on shard (0, 0) of the (2, 2)
+    grid, masked: its launch time (interior and strips summed with
+    overlap), bytes and points, the plain version's time on it, the median
+    shard's time and the whole grid's launch."""
+    pieces = kern["grids"]["2x2_masked" + ("_overlap" if overlap
+                                            else "")]["pieces"]
+    per = {}
+    for q in pieces:
+        per.setdefault(tuple(q["shard"]), []).append(q)
+    first = per[(0, 0)]
+    return {"ms": sum(q["ms"] for q in first),
+            "median_shard_ms": statistics.median(
+                sum(q["ms"] for q in qs) for qs in per.values()),
+            "plain_ms": kern["plain_shard_ms"],
+            "unsharded_ms": kern["unsharded_masked_ms"],
+            "shard_launches": len(pieces),
+            "shard_bytes": sum(q["bytes"] for q in first),
+            "shard_points": sum(NLEV * q["block"][0] * q["block"][1]
+                                for q in first)}
+
+
+def phase_sharded(dev, smi: str, hbm: float) -> dict:
+    """Phase 15: B1's per-shard arguments at full width, and the sharded
+    path at world size 1 under NCCL."""
+    return {"kernels": sharded_kernels(dev, smi, hbm),
+            "path": sharded_path(dev, smi)}
+
+
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
@@ -3679,6 +4086,7 @@ def main() -> int:
     request_trace = phase_request_trace(dev, smi)
     log("== phase 11: the operator surface")
     goldens = phase_goldens(dev)
+    number_args = phase_number_args(dev)
     configs = phase_configs(dev, smi)
     ens = phase_ensemble(dev, smi)
     log("== phase 12: the streaming executor and the page-locked copies")
@@ -3687,6 +4095,8 @@ def main() -> int:
     api_res = phase_api(dev, smi, times["copy_gbps"], env["f32_rate"])
     log("== phase 14: call-storm batching on the card")
     batch_res = phase_batch(dev, smi)
+    log("== phase 15: B1 per shard, and the sharded path under NCCL")
+    sharded = phase_sharded(dev, smi, probes["hbm_bytes_per_s"])
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -3699,9 +4109,10 @@ def main() -> int:
             "golden": icing_golden, "times": icing_times},
         "probes": {"max_abs_err": probe_err, **probes},
         "request_trace": request_trace,
-        "surface": {"goldens": goldens, "configs": configs,
-                    "ensemble": ens}, "stream": stream, "api": api_res,
-        "batch": batch_res, "wall_s": wall}))
+        "surface": {"goldens": goldens, "number_args": number_args,
+                    "configs": configs, "ensemble": ens}, "stream": stream,
+        "api": api_res, "batch": batch_res, "sharded": sharded,
+        "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -3723,6 +4134,8 @@ def main() -> int:
                 "library_ms": library_ms}
 
     pts1 = NLEV * NY * NX
+    shard_recs = {ov: shard_record(sharded["kernels"], ov)
+                  for ov in (False, True)}
     nlev4, ny4, nx4 = ISO_SHAPE
     from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
     nt4 = len(STANDARD_PLEVELS)
@@ -3773,7 +4186,20 @@ def main() -> int:
         "ms": stream["b1"]["kernel_ms"],
         "plain_ms": stream["b1"]["plain_ms"],
         **bound(layout_bytes(NLEV, NY, NX, False), OPS_B1_POINT * pts1),
-    }, {
+    }] + [{
+        "name": "derived_fields",
+        "path": "derived_fields_fused_sharded" + (
+            " (overlap)" if overlap else ""),
+        "route": "cuda",
+        "source": src + "derived_fields.cu",
+        "replaces": ref + "fused.py:301",
+        "launches": sharded["path"]["launches"][
+            "fused_overlap" if overlap else "fused"]["derived_fields"],
+        "max_abs_err": 0.0,
+        **shard_recs[overlap],
+        **bound(shard_recs[overlap]["shard_bytes"],
+                OPS_B1_POINT * shard_recs[overlap]["shard_points"]),
+    } for overlap in (False, True)] + [{
         "name": "vertical_interp",
         "route": "cuda",
         "source": src + "vertical_interp.cu",

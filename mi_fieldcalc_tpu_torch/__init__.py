@@ -32,10 +32,10 @@ builds and loads nothing: the CUDA library is compiled at first use
 __version__ = "0.1.0"
 
 from .field import (  # noqa: F401
-    UNDEF, Field, ValuesDefined, defined_state, from_arrays, from_sentinel,
-    from_values, full_undef,
+    UNDEF, Field, ValuesDefined, combine_defined, defined_counts,
+    defined_state, from_arrays, from_sentinel, from_values, full_undef,
 )
-from . import constants, models, ops  # noqa: F401,E402
+from . import constants, models, ops, parallel  # noqa: F401,E402
 from .ops import (  # noqa: F401,E402
     vessel_icing_mertins, vessel_icing_mincog, vessel_icing_mincog_fused,
     vessel_icing_modstall, vessel_icing_modstall_fused,

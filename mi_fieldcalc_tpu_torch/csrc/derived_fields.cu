@@ -50,11 +50,23 @@
 // range.  TFP reads the *filled* |grad T| at its 4 neighbours; each is
 // the raw value at its own clamped point, taken from the tile's window.
 //
+// A shard of a domain-decomposed grid (parallel/fused.py) is the block
+// whose local (0, 0) sits at global (row0, col0), negative on halo rows,
+// in a global (nyg, nxg) grid.  fillEdges then fires only at the global
+// edges: the clamp keeps to global rows [1, nyg-2] and columns
+// [1, nxg-2], and also to the local [1, ny-2] x [1, nx-2], so that a
+// point on a halo row never reads outside the block (the halo rows of the
+// output are cropped).  The host turns the offsets into the clamp bounds
+// [ylo, yhi] x [xlo, xhi]; the unsharded grid is row0 = col0 = 0 and
+// (nyg, nxg) = (ny, nx), the bounds [1, ny-2] x [1, nx-2].
+//
 // Numerics: built with -fmad=false and without --use_fast_math (see
 // common.cuh, which holds the constants, the EWT table, the deterministic
 // pow and the table lookups this kernel shares with the others).  Every
 // output is the plain version's sequence of float32 operations
 // (ops/fused.derived_fields_plain); the kernel equals it bit for bit.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -86,6 +98,7 @@ struct Params {
   float* __restrict__ out_values;
   uint8_t* __restrict__ out_masks;
   int ny, nx;
+  int ylo, yhi, xlo, xhi;   // the clamp: rows [ylo, yhi], columns [xlo, xhi]
   int64_t n3;         // nlev * ny * nx: one output plane
 };
 
@@ -105,7 +118,10 @@ __device__ __forceinline__ bool ring4(const uint8_t* m, int r, int nx) {
          __ldg(m + r + nx);
 }
 
-template <bool kAllDefined>
+// kSharded: the clamp bounds come from P (a shard); without it they are
+// the constants [1, ny-2] x [1, nx-2], which keep the unsharded kernel's
+// registers (48 masked, against 61 with the bounds read from P).
+template <bool kAllDefined, bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 derived_fields_kernel(const Params P) {
   __shared__ float s_grad[kHalo];
@@ -128,15 +144,17 @@ derived_fields_kernel(const Params P) {
   uint8_t* om = P.out_masks + lev0;
   const float a_l = __ldg(P.alevel + lev);
   const float b_l = __ldg(P.blevel + lev);
+  const int ylo = kSharded ? P.ylo : 1, yhi = kSharded ? P.yhi : ny - 2;
+  const int xlo = kSharded ? P.xlo : 1, xhi = kSharded ? P.xhi : nx - 2;
   // The clamped points the tile's TFP reads (its points' clamped points
   // and their clamped neighbours) lie in rows wy .. wy + kTileY + 1 and
   // columns wx .. wx + kTileX + 1: entry (iy, ix) holds the raw |grad T|
-  // and gate at (min(wy + iy, ny - 2), min(wx + ix, nx - 2)).
-  const int wy = max(min(max(y0, 1), ny - 2) - 1, 1);
-  const int wx = max(min(max(x0, 1), nx - 2) - 1, 1);
+  // and gate at (min(wy + iy, yhi), min(wx + ix, xhi)).
+  const int wy = max(min(max(y0, ylo), yhi) - 1, ylo);
+  const int wx = max(min(max(x0, xlo), xhi) - 1, xlo);
   for (int h = threadIdx.x; h < kHalo; h += blockDim.x) {
-    const int yy = min(wy + h / kHaloX, ny - 2);
-    const int xx = min(wx + h % kHaloX, nx - 2);
+    const int yy = min(wy + h / kHaloX, yhi);
+    const int xx = min(wx + h % kHaloX, xhi);
     const int r = yy * nx + xx;
     s_grad[h] = grad_abs(tk, P.xmapr, P.ymapr, r, nx);
     if (!kAllDefined) s_gate[h] = ring4(tkm, r, nx);
@@ -183,8 +201,8 @@ derived_fields_kernel(const Params P) {
     o[6 * P.n3] = sqrtf(uv * uv + vv * vv);
 
     // ---- radius-1 stencils at the clamped point (fillEdges) ------------
-    const int cy = min(max(y, 1), ny - 2);
-    const int cx = min(max(x, 1), nx - 2);
+    const int cy = min(max(y, ylo), yhi);
+    const int cx = min(max(x, xlo), xhi);
     const int r = cy * nx + cx;
     const float xm = __ldg(P.xmapr + r);
     const float ym = __ldg(P.ymapr + r);
@@ -200,8 +218,8 @@ derived_fields_kernel(const Params P) {
 
     // ---- |grad T| (filled) and TFP --------------------------------------
     // filled |grad T| at the 4 neighbours = raw at their clamped points
-    const int cxm = max(cx - 1, 1), cxp = min(cx + 1, nx - 2);
-    const int cym = max(cy - 1, 1), cyp = min(cy + 1, ny - 2);
+    const int cxm = max(cx - 1, xlo), cxp = min(cx + 1, xhi);
+    const int cym = max(cy - 1, ylo), cyp = min(cy + 1, yhi);
     const int hc = (cy - wy) * kHaloX + (cx - wx);
     const int hxm = hc + cxm - cx, hxp = hc + cxp - cx;
     const int hym = hc + (cym - cy) * kHaloX, hyp = hc + (cyp - cy) * kHaloX;
@@ -245,7 +263,10 @@ extern "C" {
 
 // Launches the kernel on `stream`; returns cudaGetLastError() as an int.
 // Mask pointers may be null when all_defined != 0 (they are not read).
-// out_masks holds 2 planes when all_defined != 0, else 9.
+// out_masks holds 2 planes when all_defined != 0, else 9.  (row0, col0) is
+// the global position of the local (0, 0) in a global (nyg, nxg) grid;
+// the unsharded call passes 0, 0, ny, nx.  A block that holds no point of
+// the global interior's clamp window is refused.
 int mf_derived_fields(const float* tk, const float* q, const float* u,
                       const float* v, const uint8_t* tkm, const uint8_t* qm,
                       const uint8_t* um, const uint8_t* vm, const float* ps,
@@ -253,21 +274,35 @@ int mf_derived_fields(const float* tk, const float* q, const float* u,
                       const float* blevel, const float* xmapr,
                       const float* ymapr, float* out_values,
                       uint8_t* out_masks, int nlev, int ny, int nx,
+                      int row0, int col0, int nyg, int nxg,
                       int all_defined, void* stream) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   if (nlev < 1 || nlev > 65535 || ny < 3 || nx < 3 ||
       (ny + kTileY - 1) / kTileY > 65535 || plane > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int ylo = std::max(1, 1 - row0);
+  const int yhi = std::min(ny - 2, nyg - 2 - row0);
+  const int xlo = std::max(1, 1 - col0);
+  const int xhi = std::min(nx - 2, nxg - 2 - col0);
+  if (ylo > yhi || xlo > xhi) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Params P{tk, q, u, v, tkm, qm, um, vm, ps, psm, alevel, blevel,
-                 xmapr, ymapr, out_values, out_masks, ny, nx, plane * nlev};
+                 xmapr, ymapr, out_values, out_masks, ny, nx,
+                 ylo, yhi, xlo, xhi, plane * nlev};
   const dim3 grid((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY,
                   nlev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (all_defined) {
-    derived_fields_kernel<true><<<grid, kThreads, 0, s>>>(P);
+  const bool sharded = row0 != 0 || col0 != 0 || nyg != ny || nxg != nx;
+  if (all_defined && sharded) {
+    derived_fields_kernel<true, true><<<grid, kThreads, 0, s>>>(P);
+  } else if (all_defined) {
+    derived_fields_kernel<true, false><<<grid, kThreads, 0, s>>>(P);
+  } else if (sharded) {
+    derived_fields_kernel<false, true><<<grid, kThreads, 0, s>>>(P);
   } else {
-    derived_fields_kernel<false><<<grid, kThreads, 0, s>>>(P);
+    derived_fields_kernel<false, false><<<grid, kThreads, 0, s>>>(P);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,8 @@ import torch
 
 __all__ = [
     "UNDEF", "ValuesDefined", "Field", "from_sentinel", "from_values",
-    "from_arrays", "full_undef", "defined_state",
+    "from_arrays", "full_undef", "defined_counts", "defined_state",
+    "combine_defined",
 ]
 
 #: Default missing-value sentinel (``miutil::UNDEF``).
@@ -104,6 +105,17 @@ def full_undef(shape, device=None) -> Field:
                  torch.zeros(shape, dtype=torch.bool, device=device))
 
 
+def defined_counts(mask: torch.Tensor):
+    """``(n_defined, n_total)`` as 0-dim int64 tensors on the mask's device,
+    with no host sync: :func:`defined_state`'s counts for use inside a
+    pipeline (compare them with selects, not host branches).  On a shard,
+    sum ``n_defined`` over the shards (``torch.distributed.all_reduce``)
+    for the whole field's count."""
+    return (mask.sum(dtype=torch.int64),
+            torch.full((), mask.numel(), dtype=torch.int64,
+                       device=mask.device))
+
+
 def defined_state(mask: torch.Tensor) -> ValuesDefined:
     """``checkDefined`` over a mask tensor (synchronises with the device)."""
     n_def = int(mask.sum())
@@ -113,3 +125,12 @@ def defined_state(mask: torch.Tensor) -> ValuesDefined:
     if n_def == 0:
         return ValuesDefined.NONE_DEFINED
     return ValuesDefined.SOME_DEFINED
+
+
+def combine_defined(a: ValuesDefined, b: ValuesDefined) -> ValuesDefined:
+    """``combineDefined`` (FieldDefined.cc:72-83)."""
+    if a == ValuesDefined.ALL_DEFINED:
+        return b
+    if a == ValuesDefined.NONE_DEFINED:
+        return ValuesDefined.NONE_DEFINED
+    return b if b != ValuesDefined.ALL_DEFINED else ValuesDefined.SOME_DEFINED

@@ -26,8 +26,12 @@ from ..ops import (
 from ..ops._harness import not_ported
 
 __all__ = ["DerivedFields", "DerivedFieldsStacked", "STANDARD_PLEVELS",
-           "derived_fields", "derived_fields_isobaric",
+           "RADIUS", "derived_fields", "derived_fields_isobaric",
            "derived_fields_plevel", "inputs_from_numpy"]
+
+#: The pipeline's composed stencil radius (TFP through |grad T|): the halo
+#: a shard of a domain-decomposed grid needs.
+RADIUS = 2
 
 #: Standard isobaric surfaces for the 3-D vertical pipeline (hPa).
 STANDARD_PLEVELS = (1000.0, 925.0, 850.0, 700.0, 500.0, 400.0, 300.0,

@@ -1,9 +1,12 @@
 """JAX-free ctypes binding of the native host codec ``native/fieldcodec.cc``.
 
-The port's counterpart of :mod:`mi_fieldcalc_tpu.native`
-(``native.py:53-133, 168-277, 417-488``) for the three entries the serving
-path uses: :func:`decode_pad_batch`, :func:`decode_pad` and
-:func:`encode_trim_batch` (with ``mask_map``).  It binds the same library
+The port's counterpart of :mod:`mi_fieldcalc_tpu.native`: the three
+entries the serving path uses, :func:`decode_pad_batch`, :func:`decode_pad`
+and :func:`encode_trim_batch` (with ``mask_map``), and the rest of its
+public surface, :func:`available`, :func:`decode`, :func:`encode`,
+:func:`encode_trim`, :func:`count_defined` and :func:`defined_state_host`
+(``native.py:135-160, 528-590``).  The entries of the TPU's aligned,
+padded ingest (levpack, resample) are not ported.  It binds the same library
 (ABI 6), built by ``native/build.sh`` with ``g++`` on first use into the
 port's git-ignored ``_build/`` directory.  Without a compiler every entry
 falls back to numpy with the same results, as the JAX binding does; the
@@ -23,9 +26,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .field import UNDEF
+from .field import UNDEF, ValuesDefined
 
-__all__ = ["codec", "decode_pad", "decode_pad_batch", "encode_trim_batch"]
+__all__ = ["available", "codec", "decode", "decode_pad", "decode_pad_batch",
+           "encode", "encode_trim", "encode_trim_batch", "count_defined",
+           "defined_state_host"]
 
 _ABI = 6
 _REPO = Path(__file__).resolve().parent.parent
@@ -62,6 +67,13 @@ def _load() -> Optional[ctypes.CDLL]:
                 return None
     except (OSError, subprocess.SubprocessError):
         return None
+    f32 = ctypes.c_float
+    lib.mf_decode.restype = _i64
+    lib.mf_decode.argtypes = [_f32p, _i64, f32, f32, _f32p, _u8p]
+    lib.mf_encode.restype = None
+    lib.mf_encode.argtypes = [_f32p, _u8p, _i64, f32, _f32p]
+    lib.mf_count_defined.restype = _i64
+    lib.mf_count_defined.argtypes = [_f32p, _i64, f32]
     lib.mf_decode_pad.restype = _i64
     lib.mf_decode_pad.argtypes = [_f32p, _i64, _i64, _i64, _i64, _i64,
                                   ctypes.c_float, ctypes.c_float, _f32p, _u8p]
@@ -85,8 +97,73 @@ def codec() -> str:
     return "numpy" if _load() is None else "native"
 
 
+def available() -> bool:
+    """Whether the compiled codec is loadable (builds it if needed)."""
+    return _load() is not None
+
+
 def _f32c(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def _mask_u8(mask, shape) -> np.ndarray:
+    m = np.ascontiguousarray(mask)
+    if m.shape != tuple(shape):
+        m = np.ascontiguousarray(np.broadcast_to(m, shape))
+    return m.astype(np.uint8, copy=False)
+
+
+def decode(values, undef: float = UNDEF, fill: float = 0.0,
+           ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Sentinel array -> ``(values with fill at undefined points, bool
+    mask, n_defined)`` in one pass (``is_defined``,
+    FieldCalculations.h:42-45)."""
+    v = _f32c(values)
+    lib = _load()
+    if lib is None:
+        mask = ~np.isnan(v) & (v != np.float32(undef))
+        return np.where(mask, v, np.float32(fill)), mask, int(mask.sum())
+    out = np.empty_like(v)
+    mask = np.empty(v.shape, dtype=np.uint8)
+    n_def = lib.mf_decode(v.ctypes.data_as(_f32p), v.size, undef, fill,
+                          out.ctypes.data_as(_f32p),
+                          mask.ctypes.data_as(_u8p))
+    return out, mask.view(np.bool_), int(n_def)
+
+
+def encode(values, mask, undef: float = UNDEF) -> np.ndarray:
+    """``(values, mask)`` -> the sentinel array (``Field.to_sentinel`` on
+    the host); ``mask`` broadcasts to the values."""
+    v = _f32c(values)
+    m = _mask_u8(mask, v.shape)
+    lib = _load()
+    if lib is None:
+        return np.where(m != 0, v, np.float32(undef))
+    out = np.empty_like(v)
+    lib.mf_encode(v.ctypes.data_as(_f32p), m.ctypes.data_as(_u8p), v.size,
+                  undef, out.ctypes.data_as(_f32p))
+    return out
+
+
+def count_defined(values, undef: float = UNDEF) -> int:
+    """The defined points of a sentinel array."""
+    v = _f32c(values)
+    lib = _load()
+    if lib is None:
+        return int((~np.isnan(v) & (v != np.float32(undef))).sum())
+    return int(lib.mf_count_defined(v.ctypes.data_as(_f32p), v.size, undef))
+
+
+def defined_state_host(values, undef: float = UNDEF) -> ValuesDefined:
+    """``checkDefined(const float*, n)`` (FieldDefined.cc:41-57) of a
+    sentinel array on the host."""
+    v = _f32c(values)
+    n_def = count_defined(v, undef)
+    if n_def == v.size:
+        return ValuesDefined.ALL_DEFINED
+    if n_def == 0:
+        return ValuesDefined.NONE_DEFINED
+    return ValuesDefined.SOME_DEFINED
 
 
 def _check_pad(ny, nx, ny_p, nx_p) -> None:
@@ -158,14 +235,15 @@ def decode_pad_batch(arrays, ny_p: int, nx_p: int, undef: float = UNDEF,
     return out, mask.view(np.bool_), list(counts)
 
 
-def _encode_trim(values, mask, ny: int, nx: int,
-                 undef: float = UNDEF) -> np.ndarray:
+def encode_trim(values, mask, ny: int, nx: int,
+                undef: float = UNDEF) -> np.ndarray:
     """``(values, mask)`` on a padded ``[..., ny_p, nx_p]`` grid -> the
-    logical ``[..., ny, nx]`` sentinel array in one pass."""
+    logical ``[..., ny, nx]`` sentinel array in one pass
+    (:func:`decode_pad`'s output-side dual)."""
     v = _f32c(values)
     ny_p, nx_p = v.shape[-2:]
     _check_pad(ny, nx, ny_p, nx_p)
-    m = np.ascontiguousarray(np.broadcast_to(mask, v.shape)).view(np.uint8)
+    m = _mask_u8(mask, v.shape)
     lib = _load()
     if lib is None:
         return np.where(m[..., :ny, :nx] != 0, v[..., :ny, :nx],
@@ -202,7 +280,7 @@ def encode_trim_batch(values, mask, ny: int, nx: int, mask_map,
     lib = _load()
     if lib is None:
         return [v[f, ..., :ny, :nx].copy() if mmap[f] < 0 else
-                _encode_trim(v[f], m[mmap[f]], ny, nx, undef)
+                encode_trim(v[f], m[mmap[f]], ny, nx, undef)
                 for f in range(k)]
     lead = int(np.prod(v.shape[1:-2], dtype=np.int64))
     outs = [np.empty(v.shape[1:-2] + (ny, nx), np.float32) for _ in range(k)]

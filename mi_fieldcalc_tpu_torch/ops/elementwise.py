@@ -31,6 +31,7 @@ from ..constants import (
 )
 from ..field import UNDEF, Field, f32, full_undef
 from ._harness import and_masks, const, div, out_field, require
+from .stencil import shard_all_reduce
 
 __all__ = [
     "cvtemp", "cvhum", "abshum", "vectorabs", "wind_cooling",
@@ -52,15 +53,17 @@ def _undef_like(f: Field) -> Field:
 def cvtemp(t: Field, compute: int) -> Field:
     """Kelvin <-> Celsius (FieldCalculations.cc:1608-1674): 1 K->C, 2 C->K,
     3 K->C only if the defined points' mean looks like Kelvin, 4 C->K only
-    if it looks like Celsius.  Modes 3/4 decide per 2-D field."""
+    if it looks like Celsius.  Modes 3/4 decide per 2-D field; on a shard
+    (``ops.stencil.ShardCtx``) the partial count and sum are summed over
+    the shards first, so every shard decides on the global mean."""
     require(compute in (1, 2, 3, 4), f"cvtemp: bad compute {compute}")
     tconvert = -_T0 if compute in (1, 3) else _T0
     converted = t.values + tconvert
     if compute in (1, 2):
         return Field(converted, t.mask)
-    navg = t.mask.sum(dim=(-2, -1))
-    tsum = torch.where(t.mask, t.values, const(0.0, t.values)).sum(
-        dim=(-2, -1))
+    navg = shard_all_reduce(t.mask.sum(dim=(-2, -1)), "sum")
+    tsum = shard_all_reduce(torch.where(t.mask, t.values, const(
+        0.0, t.values)).sum(dim=(-2, -1)), "sum")
     some = navg > 0
     tavg = torch.where(some, div(tsum, torch.where(some, navg, 1).to(
         torch.float32)), const(0.0, tsum))

@@ -15,6 +15,7 @@ import torch
 
 from ..field import Field, ValuesDefined, f32
 from ._harness import bool_vector, out_field, require
+from .stencil import _SHARD_CTX, shard_all_reduce
 
 __all__ = ["sum_fields", "mean_value", "stddev_value", "extreme_value",
            "probability"]
@@ -125,7 +126,8 @@ def probability(compute: int, members, limits: Sequence[float],
     NONE_DEFINED, even where the member is undefined at the point
     (FieldCalculationsTest.cc:225-305).  The flags come from
     ``member_defined`` (Python values), ``member_defined_mask`` (a
-    ``[nmem]`` bool tensor) or, with neither, each member's mask."""
+    ``[nmem]`` bool tensor) or, with neither, each member's mask, on a
+    shard (``ops.stencil.ShardCtx``) the maximum over the shards."""
     s = _stack(members)
     check_between = len(limits) >= 2 and compute in (3, 6)
     check_above = len(limits) >= 1 and (compute in (1, 4) or check_between)
@@ -152,6 +154,9 @@ def probability(compute: int, members, limits: Sequence[float],
                 "probability: member_defined_mask must be a [nmem] vector")
     else:
         member_sel = s.mask.reshape(s.mask.shape[0], -1).any(dim=1)
+        if _SHARD_CTX.get() is not None:
+            member_sel = shard_all_reduce(member_sel.to(torch.int32),
+                                          "max") != 0
     nfields = member_sel.sum()
     passes = passes & _member_axis(member_sel, s)
     count = passes.sum(dim=0).to(torch.float32)

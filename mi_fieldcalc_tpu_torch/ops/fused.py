@@ -11,8 +11,11 @@ into the same layout.
 
 Tensors on the CPU take the plain version.  CUDA tensors take the kernel,
 or the wrapper raises: it never falls back.  The grid is the logical
-``(ny, nx)``; the kernel bounds-masks its own edges, so none of the TPU's
-padded layout, tiling or sharding offsets carry over.
+``(ny, nx)``; the kernel bounds-masks its own edges, so the TPU's padded
+layout and tiling do not carry over.  The sharding offsets do
+(``global_shape``, ``grid_offsets``): a shard of a domain-decomposed grid
+(:mod:`..parallel.fused`) fills its edges only where they are the global
+grid's.
 """
 
 from __future__ import annotations
@@ -21,9 +24,12 @@ import ctypes
 
 import torch
 
+import operator
+
 from ..field import Field
 from ..models.pipeline import DerivedFieldsStacked, derived_fields
-from ._harness import check_tensor
+from ._harness import check_tensor, not_ported
+from .stencil import ShardCtx, fill_bounds, shard_context
 
 __all__ = ["derived_fields_fused", "derived_fields_plain", "fused_supported"]
 
@@ -44,18 +50,58 @@ def fused_supported(ny: int, nx: int) -> bool:
     return 3 <= ny <= _MAX_NY and nx >= 3 and ny * nx <= _MAX_PLANE
 
 
+def _placement(shape, global_shape, grid_offsets, halo_rows) -> tuple:
+    """``(row0, col0, nyg, nxg)`` of a block of ``shape``: where its local
+    (0, 0) sits in the global grid, checked, as Python ints."""
+    ny, nx = shape[-2], shape[-1]
+    if isinstance(halo_rows, torch.Tensor) or operator.index(halo_rows) < 0:
+        raise ValueError("derived_fields_fused: halo_rows must be an int "
+                         ">= 0")
+    if grid_offsets is None:
+        if global_shape is not None and tuple(global_shape) != (ny, nx):
+            raise not_ported("mi_fieldcalc_tpu.ops.fused."
+                             "derived_fields_fused",
+                             "the padded layout (global_shape without "
+                             "grid_offsets)")
+        return 0, 0, ny, nx
+    if global_shape is None:
+        raise ValueError("derived_fields_fused: grid_offsets needs "
+                         "global_shape")
+    if any(isinstance(x, torch.Tensor) for x in (*grid_offsets,
+                                                 *global_shape)):
+        raise TypeError("derived_fields_fused: grid_offsets and "
+                        "global_shape are Python ints, not tensors")
+    row0, col0 = (operator.index(x) for x in grid_offsets)
+    nyg, nxg = (operator.index(x) for x in global_shape)
+    fill_bounds(ny, row0, nyg)
+    fill_bounds(nx, col0, nxg)
+    return row0, col0, nyg, nxg
+
+
 def derived_fields_plain(tk: Field, q: Field, u: Field, v: Field, ps: Field,
                          alevel, blevel, xmapr, ymapr, fcoriolis,
-                         all_defined: bool = False) -> DerivedFieldsStacked:
+                         all_defined: bool = False, global_shape=None,
+                         grid_offsets=None,
+                         halo_rows: int = 2) -> DerivedFieldsStacked:
     """The kernel's plain PyTorch version: :func:`derived_fields` stacked
     into the kernel's layout.  ``all_defined`` ignores the input masks
     (every one is taken as True, as the kernel never reads them) and
-    keeps the 2 data-dependent gate planes."""
+    keeps the 2 data-dependent gate planes.  With ``grid_offsets`` the
+    operators run on the shard (``ops.stencil.ShardCtx``), as the kernel
+    does."""
+    row0, col0, nyg, nxg = _placement(tk.values.shape, global_shape,
+                                      grid_offsets, halo_rows)
     if all_defined:
-        tk, q, u, v, ps = (Field(f.values, torch.ones_like(f.mask))
-                           for f in (tk, q, u, v, ps))
-    out = derived_fields(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
-                         fcoriolis)
+        tk, q, u, v, ps = (Field(f.values, torch.ones(
+            f.values.shape, dtype=torch.bool, device=f.values.device))
+            for f in (tk, q, u, v, ps))
+    if grid_offsets is None:
+        out = derived_fields(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
+                             fcoriolis)
+    else:
+        with shard_context(ShardCtx(row0, col0, nyg, nxg)):
+            out = derived_fields(tk, q, u, v, ps, alevel, blevel, xmapr,
+                                 ymapr, fcoriolis)
     planes = _PLANE_FIELDS2 if all_defined else _PLANE_FIELDS9
     return DerivedFieldsStacked(
         values=torch.stack([f.values for f in out]),
@@ -65,14 +111,27 @@ def derived_fields_plain(tk: Field, q: Field, u: Field, v: Field, ps: Field,
 def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
                          alevel, blevel, xmapr, ymapr, fcoriolis,
                          stacked: bool = True,
-                         all_defined: bool = False):
+                         all_defined: bool = False, global_shape=None,
+                         grid_offsets=None, halo_rows: int = 2):
     """All 12 pipeline outputs in one pass, as a
     :class:`DerivedFieldsStacked`: values ``f32[12, nlev, ny, nx]`` and
     masks ``bool[9, nlev, ny, nx]``, or ``bool[2, nlev, ny, nx]`` when
     ``all_defined`` (the caller asserts every input point is defined; input
-    masks are then not read).  ``stacked=False`` returns the same result
-    as :class:`DerivedFields` (``.as_fields()``: views of the stacked
-    tensors; fields that share a mask plane share its tensor).
+    masks are then not read, and may be ``None``).  ``stacked=False``
+    returns the same result as :class:`DerivedFields` (``.as_fields()``:
+    views of the stacked tensors; fields that share a mask plane share its
+    tensor).
+
+    On one shard of a domain-decomposed grid, ``global_shape`` is the
+    global ``(ny, nx)`` and ``grid_offsets`` the global ``(row, col)`` of
+    the local ``(0, 0)``, negative on halo rows: a pair of Python ints that
+    reach the kernel as launch arguments (no device tensor, no host sync).
+    ``fillEdges`` then fires only at the global edges; output rows and
+    columns outside the global grid, or on halo rows, are the caller's to
+    crop.  ``halo_rows`` tells the kernel nothing that the offsets do not
+    (the TPU kernel chose its tiles by it); it must be an int >= 0.
+    ``global_shape`` without ``grid_offsets`` is the TPU's padded layout,
+    not ported, unless it is the block's own shape.
 
     On CUDA tensors this launches the kernel and counts the launch in
     ``derived_fields_fused.launches``; on CPU tensors it runs
@@ -80,10 +139,12 @@ def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
     dev = tk.values.device
     if dev.type == "cpu":
         out = derived_fields_plain(tk, q, u, v, ps, alevel, blevel, xmapr,
-                                   ymapr, fcoriolis, all_defined)
+                                   ymapr, fcoriolis, all_defined,
+                                   global_shape, grid_offsets, halo_rows)
     elif dev.type == "cuda":
         out = _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
-                      all_defined)
+                      all_defined, _placement(tk.values.shape, global_shape,
+                                              grid_offsets, halo_rows))
     else:
         raise ValueError(f"derived_fields_fused: no kernel for {dev}")
     return out if stacked else out.as_fields()
@@ -98,7 +159,10 @@ def _check(t, name: str, shape: tuple, dtype: torch.dtype,
 
 
 def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
-            all_defined: bool) -> DerivedFieldsStacked:
+            all_defined: bool, placement: tuple = None
+            ) -> DerivedFieldsStacked:
+    """One launch; ``placement`` is :func:`_placement`'s ``(row0, col0,
+    nyg, nxg)``, the whole grid when ``None``."""
     from .._build import load_library
 
     dev = tk.values.device
@@ -108,12 +172,16 @@ def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
     if not fused_supported(ny, nx) or nlev > _MAX_NLEV:
         raise ValueError(f"derived_fields_fused: unsupported grid "
                          f"({nlev}, {ny}, {nx}); need ny, nx >= 3")
+    if placement is None:
+        placement = (0, 0, ny, nx)
     f32, b8 = torch.float32, torch.bool
-    for name, f in (("tk", tk), ("q", q), ("u", u), ("v", v)):
-        _check(f.values, name, (nlev, ny, nx), f32, dev)
-        _check(f.mask, name + ".mask", (nlev, ny, nx), b8, dev)
-    _check(ps.values, "ps", (ny, nx), f32, dev)
-    _check(ps.mask, "ps.mask", (ny, nx), b8, dev)
+    for name, f, shape in (("tk", tk, (nlev, ny, nx)),
+                           ("q", q, (nlev, ny, nx)),
+                           ("u", u, (nlev, ny, nx)),
+                           ("v", v, (nlev, ny, nx)), ("ps", ps, (ny, nx))):
+        _check(f.values, name, shape, f32, dev)
+        if not all_defined:     # the all-defined route reads no mask
+            _check(f.mask, name + ".mask", shape, b8, dev)
     for name, a in (("alevel", alevel), ("blevel", blevel)):
         _check(a, name, (nlev,), f32, dev)
     for name, a in (("xmapr", xmapr), ("ymapr", ymapr)):
@@ -137,8 +205,8 @@ def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
             ptr(tk.values), ptr(q.values), ptr(u.values), ptr(v.values),
             mptr(tk), mptr(q), mptr(u), mptr(v), ptr(ps.values), mptr(ps),
             ptr(alevel), ptr(blevel), ptr(xmapr), ptr(ymapr),
-            ptr(values), ptr(masks), nlev, ny, nx, int(all_defined),
-            ctypes.c_void_p(stream))
+            ptr(values), ptr(masks), nlev, ny, nx, *placement,
+            int(all_defined), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"derived_fields_fused: kernel launch failed: "
                            f"{lib.mf_error_string(err).decode()}")

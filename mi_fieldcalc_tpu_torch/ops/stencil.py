@@ -8,15 +8,20 @@ coriolis parameter may be tensors, Fields (their values are read) or
 numbers (a float32 0-dim tensor, so every product and quotient stays in
 float32 and IEEE).
 
-The JAX package's sharded forms (``ShardCtx``: global grid offsets for
-the momentum coordinates, seam-aware edges and a global all-defined
-decision for the Shapiro filter) wait for the port's multi-device work;
-these are the unsharded semantics.
+Under a :class:`ShardCtx` (installed by :func:`shard_context`, which
+``parallel.halo.run_sharded`` and the sharded pipeline's plain version
+use) an operator runs on one shard of a domain-decomposed grid: the fill
+of :func:`fill_edges` fires only at the global edges, the momentum
+coordinates add the shard's global offsets, and the Shapiro filter keeps
+only the physical edges and decides all-defined for the global field.
+Without a context these are the unsharded semantics.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import contextvars
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,8 +74,72 @@ def fill_edges(a: torch.Tensor) -> torch.Tensor:
                      dim=-2)
 
 
+class ShardCtx(NamedTuple):
+    """One shard's place in a domain-decomposed grid: ``(row0, col0)`` is
+    the global position of the local block's (0, 0), negative on halo rows,
+    ``(nyg, nxg)`` the global extents, and ``group`` the process group of
+    the shards of this grid (``None``: one process), over which the
+    operators that decide on a whole field reduce."""
+    row0: int
+    col0: int
+    nyg: int
+    nxg: int
+    group: Optional[object] = None
+
+
+_SHARD_CTX = contextvars.ContextVar("mf_shard_ctx", default=None)
+
+
+@contextlib.contextmanager
+def shard_context(ctx: ShardCtx):
+    """Run the operators inside the block as on the shard ``ctx``."""
+    token = _SHARD_CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _SHARD_CTX.reset(token)
+
+
+def fill_bounds(n: int, origin: int, ng: int) -> Tuple[int, int]:
+    """The rows (or columns) ``[lo, hi]`` of a block of ``n`` at global
+    ``origin`` in a global extent ``ng`` that keep their own stencil value;
+    the others take the value at the nearest of them.  That is fillEdges
+    at the global edges, and it keeps every read inside the block."""
+    lo, hi = max(1, 1 - origin), min(n - 2, ng - 2 - origin)
+    require(lo <= hi, f"a block of {n} at {origin} holds no interior point "
+            f"of a global extent of {ng}")
+    return lo, hi
+
+
+def _shard_fill(a: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """:func:`fill_edges` on a shard: columns, then rows, clamped to
+    :func:`fill_bounds`."""
+    for dim, origin, ng in ((-1, ctx.col0, ctx.nxg), (-2, ctx.row0, ctx.nyg)):
+        n = a.shape[dim]
+        lo, hi = fill_bounds(n, origin, ng)
+        idx = torch.arange(n, device=a.device).clamp(lo, hi)
+        a = a.index_select(dim, idx)
+    return a
+
+
+def shard_all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    """``t`` reduced (``"sum"``, ``"min"`` or ``"max"``) over the shards of
+    the installed :class:`ShardCtx`'s group, in place; ``t`` as it is
+    without a context or a group."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx.group is None:
+        return t
+    import torch.distributed as dist
+    dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()),
+                    group=ctx.group)
+    return t
+
+
 def _finish(values, mask) -> Field:
-    return Field(fill_edges(values), fill_edges(mask))
+    ctx = _SHARD_CTX.get()
+    if ctx is None:
+        return Field(fill_edges(values), fill_edges(mask))
+    return Field(_shard_fill(values, ctx), _shard_fill(mask, ctx))
 
 
 def _check_min_size(f: Field, name: str) -> None:
@@ -283,10 +352,14 @@ def _clamped_coriolis(fc: torch.Tensor, fcoriolis_min: float):
 
 
 def _coordinate(f: Field, axis: int) -> torch.Tensor:
-    """The grid index along ``axis`` (-1 x, -2 y) as float32, broadcast to
-    the field's shape."""
+    """The global grid index along ``axis`` (-1 x, -2 y) as float32,
+    broadcast to the field's shape: the local index plus the shard's
+    offset under a :class:`ShardCtx`."""
     n = f.shape[axis]
-    idx = torch.arange(n, dtype=torch.float32, device=f.values.device)
+    ctx = _SHARD_CTX.get()
+    off = 0 if ctx is None else (ctx.col0 if axis == -1 else ctx.row0)
+    idx = torch.arange(off, off + n, dtype=torch.float32,
+                       device=f.values.device)
     return idx.reshape((n, 1) if axis == -2 else (n,)).expand(f.shape)
 
 
@@ -309,8 +382,17 @@ def momentum_y_coordinate(u: Field, ymapr, fcoriolis,
 
 # -- Shapiro filter ----------------------------------------------------------
 
-def _edge_keep(prev, new, axis: int):
-    """Keep ``prev`` on the first and last row (axis -2) or column (-1)."""
+def _edge_keep(prev, new, axis: int, ctx=None):
+    """Keep ``prev`` on the first and last row (axis -2) or column (-1);
+    under a :class:`ShardCtx` only on the global ones, so a seam row takes
+    the smoothed value (its halo neighbours are real data)."""
+    if ctx is not None:
+        off, ng = (ctx.col0, ctx.nxg) if axis == -1 else (ctx.row0, ctx.nyg)
+        n = new.shape[axis]
+        c = torch.arange(off, off + n, device=new.device)
+        edge = ((c == 0) | (c == ng - 1)).reshape((n, 1) if axis == -2
+                                                  else (n,))
+        return torch.where(edge, prev, new)
     if axis == -1:
         return torch.cat([prev[..., :, :1], new[..., :, 1:-1],
                           prev[..., :, -1:]], dim=-1)
@@ -318,10 +400,23 @@ def _edge_keep(prev, new, axis: int):
                       prev[..., -1:, :]], dim=-2)
 
 
-def _shapiro_round(f1, s1, s2):
+def _shapiro_round(f1, s1, s2, ctx=None):
     """One x pass then one y pass with coefficients ``s1`` / ``s2``."""
-    f2 = _edge_keep(f1, f1 + s1 * (_xm(f1) + _xp(f1) - 2.0 * f1), -1)
-    return _edge_keep(f2, f2 + s2 * (_ym(f2) + _yp(f2) - 2.0 * f2), -2)
+    f2 = _edge_keep(f1, f1 + s1 * (_xm(f1) + _xp(f1) - 2.0 * f1), -1, ctx)
+    return _edge_keep(f2, f2 + s2 * (_ym(f2) + _yp(f2) - 2.0 * f2), -2, ctx)
+
+
+def _all_defined_global(f: Field, ctx: ShardCtx) -> bool:
+    """Whether the global field is all defined: the shard's points inside
+    the global grid (its halo slots beyond the physical edges are
+    undefined), then the minimum over the shards (one host sync)."""
+    ny, nx = f.shape[-2], f.shape[-1]
+    dev = f.mask.device
+    r = torch.arange(ctx.row0, ctx.row0 + ny, device=dev).reshape(ny, 1)
+    c = torch.arange(ctx.col0, ctx.col0 + nx, device=dev)
+    inside = (r >= 0) & (r < ctx.nyg) & (c >= 0) & (c < ctx.nxg)
+    alldef = (f.mask | ~inside).all().to(torch.int32).reshape(1)
+    return bool(shard_all_reduce(alldef, "min"))
 
 
 def shapiro2_filter(f: Field, all_defined=None,
@@ -333,15 +428,19 @@ def shapiro2_filter(f: Field, all_defined=None,
     second round keeps +0.25 (the reference's sign flip never reaches its
     coefficient arrays, cc:2141-2168); the arithmetic runs on the sentinel
     values.  The output is all-defined (cc:2176).  ``all_defined`` picks
-    the path; ``None`` decides from the mask (one host sync)."""
+    the path; ``None`` decides from the mask (one host sync), under a
+    :class:`ShardCtx` for the global field, as the reference decides once
+    per field (cc:2101)."""
     require(f.shape[-1] >= 3 and f.shape[-2] >= 3,
             "shapiro2_filter: grid must be at least 3x3")
+    ctx = _SHARD_CTX.get()
     if all_defined is None:
-        all_defined = bool(f.mask.all())
+        all_defined = (bool(f.mask.all()) if ctx is None
+                       else _all_defined_global(f, ctx))
     if all_defined:
         f1 = f.values
         for s in (f32(0.25), f32(-0.25)):
-            f1 = _shapiro_round(f1, s, s)
+            f1 = _shapiro_round(f1, s, s, ctx)
     else:
         f1 = f.to_sentinel(undef)
         m = f.mask
@@ -350,5 +449,5 @@ def shapiro2_filter(f: Field, all_defined=None,
         s1 = torch.where(_xm(m) & m & _xp(m), quarter, zero)
         s2 = torch.where(_ym(m) & m & _yp(m), quarter, zero)
         for _ in range(2):
-            f1 = _shapiro_round(f1, s1, s2)
+            f1 = _shapiro_round(f1, s1, s2, ctx)
     return Field(f1, torch.ones_like(f.mask))

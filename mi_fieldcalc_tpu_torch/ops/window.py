@@ -13,12 +13,15 @@ statistics with a block fill).
   719x929, far outside the 2e-5 contract.
 * Window max / min and the mean read the (2R+1)^2 shifted slices of the
   field padded by R; the percentile sorts the stacked shifted copies.
-* The strided sample and block fill is a strided slice repeated into
-  step x step blocks.
+* The strided sample and block fill gathers, for every output point, the
+  statistic at its block's sample point.
 
 Both functions need an all-defined input (cc:2868, 2964); masks appear
-only on the undefined border of the output.  Grid coordinates are the
-unsharded ones: the block's origin is (0, 0) and its extent (ny, nx).
+only on the undefined border of the output.  The border ring and the
+sample grid are in global coordinates: the block's origin is (0, 0) and
+its extent (ny, nx), or a shard's place in the global grid under
+``ops.stencil.ShardCtx`` (JAX ``window.py:44-57``), so that no border
+falls on a seam and the sample grid does not restart on each shard.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from ..field import Field
 from ._harness import div, require
+from .stencil import _SHARD_CTX
 
 __all__ = ["neighbour_prob_functions", "neighbour_functions"]
 
@@ -49,12 +53,22 @@ def _box_sum_sat(ind: torch.Tensor, rng: int) -> torch.Tensor:
     return out
 
 
+def _grid_ctx(f: Field):
+    """``(row0, col0, nyg, nxg)``: the block's global origin and the global
+    extents; ``(0, 0, ny, nx)`` outside a shard."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None:
+        return 0, 0, f.shape[-2], f.shape[-1]
+    return ctx.row0, ctx.col0, ctx.nyg, ctx.nxg
+
+
 def _border_mask(f: Field, rng: int) -> torch.Tensor:
     ny, nx = f.shape[-2], f.shape[-1]
+    row0, col0, nyg, nxg = _grid_ctx(f)
     dev = f.values.device
-    y = torch.arange(ny, device=dev).reshape(ny, 1)
-    x = torch.arange(nx, device=dev).reshape(1, nx)
-    inner = (y >= rng) & (y < ny - rng) & (x >= rng) & (x < nx - rng)
+    y = torch.arange(row0, row0 + ny, device=dev).reshape(ny, 1)
+    x = torch.arange(col0, col0 + nx, device=dev).reshape(1, nx)
+    inner = (y >= rng) & (y < nyg - rng) & (x >= rng) & (x < nxg - rng)
     return inner.expand(f.shape)
 
 
@@ -113,8 +127,8 @@ def neighbour_functions(f: Field, constants: Sequence[float],
         rng = int(constants[1])
         if len(constants) == 3:
             step = int(constants[2])
-    ny, nx = f.shape[-2], f.shape[-1]
-    require(rng <= nx and rng <= ny and rng >= 1,
+    row0, col0, nyg, nxg = _grid_ctx(f)
+    require(rng <= nxg and rng <= nyg and rng >= 1,
             "neighbourFunctions: bad range")
     require(step >= 1, "neighbourFunctions: bad step")
 
@@ -140,39 +154,28 @@ def neighbour_functions(f: Field, constants: Sequence[float],
     else:
         stat = div(_box_sum_sat(_indicator(v, limit, compute), rng), n_win)
 
+    # each point takes the statistic at its block's sample point; the
+    # block grid is global, so a sharded caller passes the composed radius
+    # rng + step - 1 (a seam point's sample lies up to step - 1 rows into
+    # the neighbour shard)
     first = rng
     lo = first - (step - 1) // 2
     dev = v.device
 
-    def n_blocks(dim):
-        return max((dim - 2 * rng + step - 1) // step, 0)
-
-    def valid_of(dim):
-        coord = torch.arange(dim, device=dev)
-        nb = n_blocks(dim)
+    def sample_of(n, origin, ng):
+        """Whether each of the block's ``n`` points along an axis lies in a
+        sample's block, and the local index of that sample."""
+        coord = torch.arange(origin, origin + n, device=dev)
+        nb = max((ng - 2 * rng + step - 1) // step, 0)
         bid = torch.div(coord - lo, step, rounding_mode="floor")
         s = first + bid.clamp(0, max(nb - 1, 0)) * step
-        return ((bid >= 0) & (bid < nb) & (coord >= lo)
-                & (coord < s - (step - 1) // 2 + step))
+        valid = ((bid >= 0) & (bid < nb) & (coord >= lo)
+                 & (coord < s - (step - 1) // 2 + step))
+        return valid, (s - origin).clamp(0, n - 1)
 
-    valid = valid_of(ny).reshape(ny, 1) & valid_of(nx).reshape(1, nx)
-    if step == 1:
-        gathered = stat
-    else:
-        nby, nbx = n_blocks(ny), n_blocks(nx)
-        samples = stat[..., rng:rng + (nby - 1) * step + 1:step,
-                       rng:rng + (nbx - 1) * step + 1:step]
-        up = samples.repeat_interleave(step, dim=-2).repeat_interleave(
-            step, dim=-1)
-
-        def paste(dim, nb):
-            src0, dst0 = max(0, -lo), max(0, lo)
-            return src0, dst0, min(dim - dst0, nb * step - src0)
-
-        sy0, dy0, ly = paste(ny, nby)
-        sx0, dx0, lx = paste(nx, nbx)
-        gathered = torch.zeros_like(stat)
-        gathered[..., dy0:dy0 + ly, dx0:dx0 + lx] = \
-            up[..., sy0:sy0 + ly, sx0:sx0 + lx]
+    vy, iy = sample_of(v.shape[-2], row0, nyg)
+    vx, ix = sample_of(v.shape[-1], col0, nxg)
+    valid = vy.reshape(-1, 1) & vx.reshape(1, -1)
+    gathered = stat.index_select(-2, iy).index_select(-1, ix)
     out = torch.where(valid, gathered, torch.zeros((), device=dev))
     return Field(out, valid.expand(out.shape))

@@ -38,9 +38,9 @@ SHAPES = [(1, 3, 3), (3, 37, 61), (2, 5, 929), (2, 33, 135), (1, 4, 5)]
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "derived_fields.cu", 2)
+    lib = host_library(tmp_path_factory, "derived_fields.cu", 4)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mf_derived_fields.argtypes = [p] * 16 + [i, i, i, i, p]
+    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.mf_derived_fields.restype = i
     return lib
 
@@ -97,7 +97,7 @@ def _host_fused(lib, args, all_defined) -> DerivedFieldsStacked:
         v.values.data_ptr(), mptr(tk), mptr(q), mptr(u), mptr(v),
         ps.values.data_ptr(), mptr(ps), al.data_ptr(), bl.data_ptr(),
         xm.data_ptr(), ym.data_ptr(), values.data_ptr(), masks.data_ptr(),
-        nlev, ny, nx, int(all_defined), None)
+        nlev, ny, nx, 0, 0, ny, nx, int(all_defined), None)
     assert err == 0
     return DerivedFieldsStacked(values, masks)
 
@@ -141,8 +141,8 @@ def test_host_fused_writes_only_its_planes(host_lib, exact_sqrt):
         v.values.data_ptr(), tk.mask.data_ptr(), q.mask.data_ptr(),
         u.mask.data_ptr(), v.mask.data_ptr(), ps.values.data_ptr(),
         ps.mask.data_ptr(), al.data_ptr(), bl.data_ptr(), xm.data_ptr(),
-        ym.data_ptr(), vbuf[3:].data_ptr(), mbuf[5:].data_ptr(), *shape, 0,
-        None)
+        ym.data_ptr(), vbuf[3:].data_ptr(), mbuf[5:].data_ptr(), *shape,
+        0, 0, *shape[1:], 0, None)
     assert err == 0
     got = DerivedFieldsStacked(vbuf[3:3 + 12 * n].reshape(12, *shape),
                                mbuf[5:5 + 9 * n].reshape(9, *shape).bool())
@@ -169,3 +169,89 @@ def test_host_fused_planted_points_reach_every_branch(host_lib, exact_sqrt):
     out = _host_fused(host_lib, _args(flat, True), True)
     assert not bool(out.masks[1].any())
     assert bool(out.masks[0].all())
+
+
+#: process grids (gy, gx) cut from SHARD_SHAPE: 37 rows over 4 are 10, 9,
+#: 9, 9 and 61 columns over 4 are 16, 15, 15, 15
+SHARD_GRIDS = [(2, 2), (4, 1), (1, 4), (3, 2)]
+SHARD_SHAPE = (2, 37, 61)
+
+
+def _host_launcher(lib, all_defined, nyg, nxg):
+    """``chip_smoke.run_plan``'s launch through the host library, with a
+    launch's offsets in the global ``(nyg, nxg)`` grid."""
+    def launch(f, al, bl, xm, ym, offsets, halo_rows):
+        tk, q, u, v, ps = f
+        nlev, ny, nx = tk.values.shape
+        values = torch.empty((12, nlev, ny, nx), dtype=torch.float32)
+        masks = torch.empty((2 if all_defined else 9, nlev, ny, nx),
+                            dtype=torch.bool)
+
+        def mptr(fl):
+            return None if all_defined else fl.mask.data_ptr()
+
+        err = lib.mf_derived_fields(
+            tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
+            v.values.data_ptr(), mptr(tk), mptr(q), mptr(u), mptr(v),
+            ps.values.data_ptr(), mptr(ps), al.data_ptr(), bl.data_ptr(),
+            xm.data_ptr(), ym.data_ptr(), values.data_ptr(),
+            masks.data_ptr(), nlev, ny, nx, *offsets, nyg, nxg,
+            int(all_defined), None)
+        assert err == 0
+        return DerivedFieldsStacked(values, masks)
+
+    return launch
+
+
+@pytest.mark.parametrize("grid", SHARD_GRIDS)
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("all_defined", [False, True])
+def test_host_fused_shards_match_unsharded(host_lib, exact_sqrt, grid,
+                                           overlap, all_defined):
+    """B1 on every shard of a (gy, gx) cut, with the shard's offsets: on
+    its block and a radius-2 halo ring (zeros, mask False, beyond the
+    physical edges), or, with overlap, on its block alone and on the seam
+    strips patched in; cropped and stitched, equal to the unsharded launch
+    bit for bit at every point.  Each launch also equals the plain version
+    under the same offsets on the part of its output that is kept (beyond
+    the physical edges ps is 0 there, and the kernel's pow takes only
+    positive pressures, as in the unsharded kernel's masked lanes)."""
+    ny, nx = SHARD_SHAPE[1:]
+    raw = _inputs(*SHARD_SHAPE, seed=5, undefs=not all_defined)
+    args = _args(raw, all_defined)[:9]
+    launch = _host_launcher(host_lib, all_defined, ny, nx)
+    whole = _host_fused(host_lib, _args(raw, all_defined), all_defined)
+    plan = chip_smoke.shard_plan(ny, nx, *grid, overlap)
+    got = chip_smoke.run_plan(launch, args, plan, all_defined)
+    _assert_same(got, whole, (grid, overlap, all_defined))
+    for p in plan:
+        a = chip_smoke.piece_args(args, p["win"])
+        offsets = (p["win"][0], p["win"][2])
+        ref = fused.derived_fields_plain(
+            *a, None, all_defined, global_shape=(ny, nx),
+            grid_offsets=offsets, halo_rows=p["halo_rows"])
+        out = launch(a[:5], *a[5:], offsets, p["halo_rows"])
+        _assert_same(chip_smoke.kept(out, p["take"]),
+                     chip_smoke.kept(ref, p["take"]),
+                     (grid, overlap, all_defined, p["shard"], p["kind"]))
+
+
+def test_host_fused_refuses_a_block_off_the_grid(host_lib):
+    """A block that holds no point of the global clamp window is refused
+    by the C entry, and the wrapper's plain route names it."""
+    raw = _inputs(1, 5, 6, seed=1, undefs=False)
+    args = _args(raw, False)
+    launch = _host_launcher(host_lib, False, 5, 6)
+    with pytest.raises(AssertionError):
+        launch(args[:5], *args[5:9], (10, 0), 0)
+    with pytest.raises(ValueError, match="holds no interior point"):
+        fused.derived_fields_plain(*args, global_shape=(5, 6),
+                                   grid_offsets=(10, 0))
+    with pytest.raises(ValueError, match="halo_rows"):
+        fused.derived_fields_plain(*args, global_shape=(5, 6),
+                                   grid_offsets=(0, 0), halo_rows=-1)
+    with pytest.raises(TypeError, match="Python ints"):
+        fused.derived_fields_plain(*args, global_shape=(5, 6),
+                                   grid_offsets=(torch.tensor(0), 0))
+    with pytest.raises(NotImplementedError, match="padded layout"):
+        fused.derived_fields_plain(*args, global_shape=(8, 8))
