@@ -159,7 +159,23 @@ Phases (any failure raises and exits non-zero):
    0); the process group is destroyed at the end.  The kernels line lists
    B1 twice more (``"path": "derived_fields_fused_sharded"`` and ``"...
    (overlap)"``): the launches of (b), the time and bound of shard (0, 0)
-   of (2, 2) in (a).  One card cannot show an exchange between ranks.
+   of (2, 2) in (a).  One card cannot show an exchange between ranks;
+16. the rest of the JAX surface: (a) B2 at 40 fields x 137x719x929 -> the
+   11 standard surfaces (phase 7's four column fields, 0.5% undefined,
+   each copy shifted by its index in value and mask), masked and
+   all-defined, under each JAX variant name (``"inplace"`` in one call;
+   ``"packed"`` and ``"carrysel"`` must refuse 40 fields as the JAX
+   function does and take them as calls of 31 and 9), each result bit for
+   bit its plain version at every point in 2 launches; the launch alone
+   (median of 10) beside its bytes bound and 10x phase 7's 4-field
+   launch (the kernels line lists B2 again, ``"path":
+   "hlevel_to_plevel_fused (40 fields)"``); (b) the tour
+   ``examples/forecast_products_torch.py`` on the card with every
+   kernel's count zeroed before and read after (B1 and B4 once each, no
+   other kernel), then on the CPU: every number it returns equal (floats
+   within RTOL); B1 as its sharded section launches it and B4 as its suite
+   does, bit for bit their plain versions and timed (the kernels line
+   lists both with ``"path": "forecast_products_torch"``).
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -189,6 +205,14 @@ all-defined) and on the isobaric path's 11 surfaces (phase 7's), and B2 at
 config 4 on its random and on a smooth ps, masked and all-defined, each
 bit for bit, the launch alone and through the wrapper.  Each DIR needs only
 its ``mi_fieldcalc_tpu_torch/``.
+
+    python3 chip_smoke.py --interp-ab DIR_A DIR_B
+
+compares B2 at config 4 in two checkouts within one process: both
+packages loaded side by side, each held to its plain version, the card
+warmed by 3 s of both launches, then 10 rounds in alternating order (A B,
+B A, ...) of 30 timed launches a case and checkout; the quartiles of each
+checkout's times and of its round medians, and each library's SASS counts.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
 line is a JSON object with the kernels' records, the last
@@ -3913,6 +3937,257 @@ def phase_sharded(dev, smi: str, hbm: float) -> dict:
             "path": sharded_path(dev, smi)}
 
 
+#: phase 16: B2 at more fields than one launch takes (31), from phase 7's
+#: four column fields; the variant names of the JAX function
+MANY_FIELDS = 40
+VARIANTS = ("packed", "inplace", "carrysel")
+#: phase 16 (b): the port's tour, and what of it the CPU run must match
+TOUR = ROOT / "examples" / "forecast_products_torch.py"
+
+
+def many_fields(base, nvar: int) -> tuple:
+    """``nvar`` distinct Fields on the card from the Fields ``base``: field
+    k is ``base[k % len(base)]`` plus k, its mask rolled by k columns (so
+    a launch that read or wrote another group's slice would show)."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field
+    return tuple(Field(base[k % len(base)].values + float(k),
+                       torch.roll(base[k % len(base)].mask, k, -1))
+                 for k in range(nvar))
+
+
+def interp_many(dev, smi: str, hbm: float, launch4_ms: float,
+                reps=10) -> dict:
+    """Phase 16 (a): B2 on MANY_FIELDS fields of 137x719x929 -> the 11
+    standard surfaces (phase 7's inputs, 0.5% undefined), masked and
+    all-defined, under each JAX variant name: ``"inplace"`` in one call,
+    ``"packed"`` and ``"carrysel"``, which refuse more than 31 fields as
+    the JAX function does (checked), in calls of 31 and the rest.  Each
+    result bit for bit its plain version at every point, 2 launches either
+    way (as the C entry reports them to the wrapper); then the launch alone timed beside its bytes bound and 10x phase
+    7's 4-field launch."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS as tg
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+
+    nlev, ny, nx = ISO_SHAPE
+    nt, nvar = len(tg), MANY_FIELDS
+    t0 = time.perf_counter()
+    raw = make_column_inputs(nlev, ny, nx, seed=3, undef_frac=0.005)
+    base = tuple(from_sentinel(x, device=dev) for x in raw[:4])
+    ps = from_sentinel(raw[4], device=dev)
+    a, b = (torch.as_tensor(x, device=dev) for x in raw[5:7])
+    del raw
+    fields = many_fields(base, nvar)
+    del base
+    torch.cuda.synchronize(dev)
+    in_gb = sum(f.values.numel() * 5 for f in fields) / 1e9
+    log(f"B2 at {nvar} fields: inputs {in_gb:.2f} GB on the card, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {"card": smi, "nvar": nvar, "inputs_gb": in_gb, "launches": {}}
+    for ad in (False, True):
+        route = "all_defined" if ad else "masked"
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ref = vf.hlevel_to_plevel_plain(fields, ps, a, b, tg, True, ad)
+        ev[1].record()
+        ev[1].synchronize()
+        res[f"plain_{route}_ms"] = ev[0].elapsed_time(ev[1])
+        for variant in VARIANTS:
+            if variant != "inplace":
+                try:
+                    vf.hlevel_to_plevel_fused(fields, ps, a, b, tg,
+                                              variant=variant)
+                except ValueError as e:
+                    if "at most 31 fields" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"variant={variant!r} took "
+                                         f"{nvar} fields")
+            calls = ([fields] if variant == "inplace" else
+                     [fields[:vf._PACKED_VARS], fields[vf._PACKED_VARS:]])
+            zero_launches()
+            got = sum((vf.hlevel_to_plevel_fused(
+                c, ps, a, b, tg, variant=variant, all_defined=ad)
+                for c in calls), ())
+            torch.cuda.synchronize(dev)
+            counts = read_launches()
+            want = -(-nvar // vf._GROUP_VARS)
+            if counts["hlevel_to_plevel_fused"] != want or sum(
+                    counts.values()) != want:
+                raise AssertionError(f"B2 {variant} {route}: launches "
+                                     f"{counts}, expected {want} of B2")
+            res["launches"][f"{variant}_{route}"] = want
+            compare_fields_exact(got, ref, f"B2 {nvar} fields {variant} "
+                                 f"{route}")
+            del got
+        del ref
+        log(f"B2 at {nvar} fields {route}: bit for bit the plain version "
+            f"at every point under {', '.join(VARIANTS)}, "
+            f"{res['launches'][f'inplace_{route}']} launches a call; plain "
+            f"{res[f'plain_{route}_ms']:.1f} ms")
+        res[f"launch_{route}_ms_all"] = time_device_ms(
+            lambda: vf._launch(fields, ps, a, b, tg, True, ad), reps)
+        res[f"launch_{route}_ms"] = statistics.median(
+            res[f"launch_{route}_ms_all"])
+    res["wrapper_ms"] = statistics.median(time_ms(
+        lambda: vf.hlevel_to_plevel_fused(fields, ps, a, b, tg,
+                                          variant="inplace"), reps))
+    res["bytes"] = interp_bytes(nvar, nlev, nt, ny, nx, False)["bracket"]
+    res["ops"] = ny * nx * nt * (nlev.bit_length() * OPS_B2_STEP
+                                 + OPS_B2_TARGET)
+    res["bound_ms"] = res["bytes"] / hbm * 1e3
+    res["ten_4field_launch_ms"] = 10 * launch4_ms
+    log(f"[{smi}] B2 at {nvar}x{nlev}x{ny}x{nx} -> {nt}: the launches "
+        f"alone {res['launch_masked_ms']:.4f} ms masked, "
+        f"{res['launch_all_defined_ms']:.4f} all-defined, through the "
+        f"wrapper {res['wrapper_ms']:.4f}; bytes bound "
+        f"{res['bound_ms']:.4f} ms ({res['bytes'] / 1e9:.3f} GB); 10x "
+        f"phase 7's 4-field launch {res['ten_4field_launch_ms']:.4f} ms")
+    return res
+
+
+def tour_module():
+    """``examples/forecast_products_torch.py``, imported from this
+    checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("forecast_products_torch",
+                                                  TOUR)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_numbers(got: dict, ref: dict, label: str) -> None:
+    """The tour's returned numbers: ints, bools and lists of names equal,
+    floats within RTOL (lists element by element)."""
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{label}: keys {sorted(got)} != {sorted(ref)}")
+    for k, r in ref.items():
+        g = got[k]
+        pairs = list(zip(g, r)) if isinstance(r, list) else [(g, r)]
+        if isinstance(r, list) and len(g) != len(r):
+            raise AssertionError(f"{label} {k}: {g} != {r}")
+        for x, y in pairs:
+            if isinstance(y, float):
+                ok = abs(x - y) <= RTOL * abs(y)
+            else:
+                ok = x == y and type(x) is type(y)
+            if not ok:
+                raise AssertionError(f"{label} {k}: cuda {g!r} cpu {r!r}")
+
+
+def tour_kernels(tour, dev, hbm: float, peak: float, reps=10) -> dict:
+    """B1 as the tour's sharded section launches it at world size 1 (the
+    grid and its radius-2 ring of zeros, global offsets -2, -2) and B4 as
+    its suite section does (temps 3, hums_q 1 and 9, masked), on the
+    tour's state on the card: each bit for bit its plain version (B1 on
+    the part kept), then the launch alone and the plain version timed.
+    B1's bound counts the grid it keeps: at world size 1 the ring holds
+    zeros under a False mask, which the clamped stencils never read, and
+    its outputs are cropped."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import from_sentinel
+    from mi_fieldcalc_tpu_torch.models.pipeline import RADIUS as R
+    from mi_fieldcalc_tpu_torch.ops import fused
+    from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
+
+    tk, q, u, v, ps, al, bl, mapr, _ = tour.synthetic_state()
+    nlev, ny, nx = tk.shape
+    f = [from_sentinel(x, device=dev) for x in (tk, q, u, v, ps)]
+    a, b, xm = (torch.as_tensor(x, device=dev) for x in (al, bl, mapr))
+    plan = shard_plan(ny, nx, 1, 1, False)[0]
+    pa = piece_args(f + [a, b, xm, xm], plan["win"])
+    kw = dict(global_shape=(ny, nx), grid_offsets=(-R, -R), halo_rows=R)
+    same_stacked(
+        kept(fused._launch(*pa, False, (-R, -R, ny, nx)), plan["take"]),
+        kept(fused.derived_fields_plain(*pa, None, **kw), plan["take"]),
+        "tour B1 == plain")
+    reqs = fs._build_reqs("chip_smoke", (3,), (1, 9), (), (), (), ())
+    plain4 = fs.hlevel_suite_plain(f[0], f[1], None, f[4], a, b, reqs, False)
+    compare_suite_exact(
+        fs._launch(True, f[0], f[1], None, f[4], a, b, reqs, False), plain4,
+        "tour B4 == plain")
+    nout = len(reqs)
+    out = {
+        "b1": {"ms": statistics.median(time_device_ms(
+                   lambda: fused._launch(*pa, False, (-R, -R, ny, nx)),
+                   reps)),
+               "plain_ms": statistics.median(time_ms(
+                   lambda: fused.derived_fields_plain(*pa, None, **kw),
+                   reps)),
+               "bytes": layout_bytes(nlev, ny, nx, False),
+               "ops": OPS_B1_POINT * nlev * ny * nx},
+        "b4": {"ms": statistics.median(time_device_ms(
+                   lambda: fs._launch(True, f[0], f[1], None, f[4], a, b,
+                                      reqs, False), reps)),
+               "plain_ms": statistics.median(time_ms(
+                   lambda: fs.hlevel_suite_plain(f[0], f[1], None, f[4], a,
+                                                 b, reqs, False), reps)),
+               "bytes": suite_bytes(2, nout, plain4.masks.shape[0], nlev,
+                                    ny, nx, True, False),
+               "ops": OPS_SUITE_OUTPUT * nout * nlev * ny * nx}}
+    for k in out.values():
+        k["bound_ms"] = max(k["bytes"] / hbm, k["ops"] / peak) * 1e3
+    return out
+
+
+def run_tour(dev, smi: str, hbm: float, peak: float) -> dict:
+    """Phase 16 (b): the tour on the card, with every kernel's count
+    zeroed before and read after (B1 and B4 once each, no other kernel),
+    then on the CPU in this run; every number it returns must agree."""
+    import contextlib
+    import io
+    import torch
+    tour = tour_module()
+    res = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        if device == "cuda":
+            zero_launches()
+        with contextlib.redirect_stdout(buf):
+            res[device] = tour.main(device)
+        if device == "cuda":
+            torch.cuda.synchronize(dev)
+            res["launches"] = read_launches()
+        res[f"{device}_s"] = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"  tour on {device}: {line}")
+    want = {k: 0 for k in res["launches"]}
+    want.update(derived_fields_fused=1, hlevel_suite_fused=1)
+    if res["launches"] != want:
+        raise AssertionError(f"tour launches {res['launches']}, expected "
+                             f"B1 and B4 once each")
+    same_numbers(res["cuda"], res["cpu"], "tour cuda vs cpu")
+    if not res["cuda"]["sharded_agree"]:
+        raise AssertionError("tour: sharded vorticity != single-device")
+    res["kernels"] = tour_kernels(tour, dev, hbm, peak)
+    log(f"[{smi}] tour: {res['cuda_s']:.1f} s on the card, "
+        f"{res['cpu_s']:.1f} s on the CPU, every number within rtol {RTOL}; "
+        f"launches {res['launches']}; B1 (its sharded launch) "
+        f"{res['kernels']['b1']['ms']:.4f} ms, plain "
+        f"{res['kernels']['b1']['plain_ms']:.3f}; B4 "
+        f"{res['kernels']['b4']['ms']:.4f} ms, plain "
+        f"{res['kernels']['b4']['plain_ms']:.3f}")
+    return res
+
+
+def phase_surface_end(dev, smi: str, hbm: float, peak: float,
+                      launch4_ms: float) -> dict:
+    """Phase 16: B2 at 40 fields under every variant name, then the
+    tour on the card and on the CPU."""
+    import torch
+    t0 = time.perf_counter()
+    many = interp_many(dev, smi, hbm, launch4_ms)
+    torch.cuda.empty_cache()
+    tour = run_tour(dev, smi, hbm, peak)
+    wall = time.perf_counter() - t0
+    log(f"phase 16 took {wall:.1f} s")
+    return {"interp_many": many, "tour": tour, "wall_s": wall}
+
+
 #: --icing-times / --suite-times: the cases timed in each checkout, and
 #: the part of the kernels' names whose ptxas lines and SASS are logged
 TIME_CASES = {"icing": (icing_time_cases, "vessel_icing"),
@@ -4097,6 +4372,11 @@ def main() -> int:
     batch_res = phase_batch(dev, smi)
     log("== phase 15: B1 per shard, and the sharded path under NCCL")
     sharded = phase_sharded(dev, smi, probes["hbm_bytes_per_s"])
+    log("== phase 16: B2 at 40 fields under every variant name, and the "
+        "tour")
+    surface_end = phase_surface_end(dev, smi, probes["hbm_bytes_per_s"],
+                                    probes["f32_flops"],
+                                    iso["times"]["interp_launch_ms"])
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -4112,7 +4392,7 @@ def main() -> int:
         "surface": {"goldens": goldens, "number_args": number_args,
                     "configs": configs, "ensemble": ens}, "stream": stream,
         "api": api_res, "batch": batch_res, "sharded": sharded,
-        "wall_s": wall}))
+        "surface_end": surface_end, "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -4134,6 +4414,7 @@ def main() -> int:
                 "library_ms": library_ms}
 
     pts1 = NLEV * NY * NX
+    many, tour = surface_end["interp_many"], surface_end["tour"]
     shard_recs = {ov: shard_record(sharded["kernels"], ov)
                   for ov in (False, True)}
     nlev4, ny4, nx4 = ISO_SHAPE
@@ -4212,6 +4493,20 @@ def main() -> int:
         "plain_ms": iso["times"]["interp_plain_ms"],
         **bounds["vertical_interp"],
     }, {
+        "name": "vertical_interp",
+        "path": f"hlevel_to_plevel_fused ({MANY_FIELDS} fields)",
+        "route": "cuda",
+        "source": src + "vertical_interp.cu",
+        "replaces": ref + "vertical_fused.py:54",
+        "launches": many["launches"]["inplace_masked"],
+        "max_abs_err": 0.0,
+        "ms": many["launch_masked_ms"],
+        "all_defined_ms": many["launch_all_defined_ms"],
+        "wrapper_ms": many["wrapper_ms"],
+        "ten_4field_launch_ms": many["ten_4field_launch_ms"],
+        "plain_ms": many["plain_masked_ms"],
+        **bound(many["bytes"], many["ops"]),
+    }, {
         "name": "alevel_suite",
         "route": "cuda",
         "source": src + "level_suite.cu",
@@ -4247,6 +4542,21 @@ def main() -> int:
         "plain_ms": icing_times[name]["plain_ms"],
         **bound(icing_times[name]["bytes"], icing_times[name]["ops"]),
     } for name in ("mincog", "modstall")] + [{
+        "name": name,
+        "path": "forecast_products_torch",
+        "route": "cuda",
+        "source": src + source,
+        "replaces": ref + replaces,
+        "launches": tour["launches"][wrapper],
+        "max_abs_err": 0.0,
+        "ms": tour["kernels"][key]["ms"],
+        "plain_ms": tour["kernels"][key]["plain_ms"],
+        **bound(tour["kernels"][key]["bytes"], tour["kernels"][key]["ops"]),
+    } for name, key, wrapper, source, replaces in (
+        ("derived_fields", "b1", "derived_fields_fused", "derived_fields.cu",
+         "fused.py:301"),
+        ("hlevel_suite", "b4", "hlevel_suite_fused", "level_suite.cu",
+         "fused_suite.py:377"))] + [{
         "name": f"vessel_icing_{key}",
         "path": f"api.{name}",
         "route": "cuda",
@@ -4313,8 +4623,127 @@ def main() -> int:
     return 0
 
 
+def checkout_package(d, alias: str):
+    """The ``mi_fieldcalc_tpu_torch`` package of checkout ``d``, imported
+    as ``alias``, so that two checkouts' packages (and their CUDA
+    libraries) live side by side in one process."""
+    import importlib
+    import importlib.util
+    init = Path(d).resolve() / "mi_fieldcalc_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        alias, init, submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quartiles(xs) -> list:
+    """The 25th, 50th and 75th percentiles of ``xs``."""
+    return [float(q) for q in np.percentile(np.asarray(xs), (25, 50, 75))]
+
+
+def interp_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
+    """``--interp-ab DIR_A DIR_B``: B2 at config 4 (the four cases of
+    :func:`interp_time_cases`) from the packages of two checkouts, loaded
+    side by side in this one process.  Each checkout's launch is held to
+    its plain version bit for bit, the card is warmed by ``warm_s``
+    seconds of both launches (the SM clock read before and after), then
+    ``rounds`` rounds, A B and B A in turn, each timing every case
+    ``reps`` times a checkout (the launch alone, :func:`time_device_ms`).
+    Logs the quartiles of each checkout's samples and of its round
+    medians, the rounds in which B was faster, and the SASS counts of each
+    library's interp kernels."""
+    import importlib
+    import torch
+    if len(dirs) != 2 or not torch.cuda.is_available():
+        print("chip_smoke --interp-ab: needs two checkouts and a CUDA "
+              "device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from mi_fieldcalc_tpu_torch.field import Field, from_sentinel
+    from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS as tg
+    from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
+    dev = torch.device("cuda", 0)
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True, timeout=60).stdout.strip())
+    pkgs = [checkout_package(d, f"ab_checkout_{k}")
+            for k, d in enumerate(dirs)]
+    vfs = [importlib.import_module(f"{p.__name__}.ops.vertical_fused")
+           for p in pkgs]
+    libs = [str(importlib.import_module(f"{p.__name__}._build").build())
+            for p in pkgs]
+    nlev, ny, nx = ISO_SHAPE
+    raw = make_column_inputs(nlev, ny, nx, seed=3, undef_frac=0.005)
+    fields = tuple(from_sentinel(x, device=dev) for x in raw[:4])
+    ps_r = from_sentinel(raw[4], device=dev)
+    ps_s = Field(torch.as_tensor(smooth_ps(ny, nx, 3), device=dev), ps_r.mask)
+    a, b = (torch.as_tensor(x, device=dev) for x in raw[5:7])
+    del raw
+    cases = {f"config4 {kind} ps {'all_defined' if ad else 'masked'}":
+             (ps, ad) for kind, ps in (("random", ps_r), ("smooth", ps_s))
+             for ad in (False, True)}
+
+    def run(k, label):
+        ps, ad = cases[label]
+        return vfs[k]._launch(fields, ps, a, b, tg, True, ad)
+
+    for label, (ps, ad) in cases.items():
+        ref = vf.hlevel_to_plevel_plain(fields, ps, a, b, tg, True, ad)
+        for k in range(2):
+            compare_fields_exact(run(k, label), ref, f"{dirs[k]} {label}")
+        del ref
+    clock = [sm_clock()]
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        for label in cases:
+            for k in range(2):
+                run(k, label)
+        torch.cuda.synchronize(dev)
+    clock.append(sm_clock())
+    samples = {label: [[], []] for label in cases}
+    round_medians = {label: [[], []] for label in cases}
+    for r in range(rounds):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            for label in cases:
+                ms = time_device_ms(lambda: run(k, label), reps)
+                samples[label][k] += ms
+                round_medians[label][k].append(statistics.median(ms))
+    clock.append(sm_clock())
+    res = {"dirs": list(dirs), "rounds": rounds, "reps": reps,
+           "sm_clock_mhz": clock, "cases": {}}
+    for label in cases:
+        q = [quartiles(samples[label][k]) for k in range(2)]
+        rq = [quartiles(round_medians[label][k]) for k in range(2)]
+        b_faster = sum(y < x for x, y in zip(*round_medians[label]))
+        res["cases"][label] = {"quartiles_ms": q, "round_quartiles_ms": rq,
+                               "round_medians_ms": round_medians[label],
+                               "rounds_b_faster": b_faster}
+        log(f"{label}: A {dirs[0]} median {q[0][1]:.4f} ms (quartiles "
+            f"{q[0][0]:.4f}-{q[0][2]:.4f}; round medians {rq[0][0]:.4f}-"
+            f"{rq[0][2]:.4f}), B {dirs[1]} {q[1][1]:.4f} ({q[1][0]:.4f}-"
+            f"{q[1][2]:.4f}; {rq[1][0]:.4f}-{rq[1][2]:.4f}); B faster in "
+            f"{b_faster} of {rounds} rounds")
+    log(f"SM clock {clock} MHz: before the warm-up, after it, after the "
+        f"rounds")
+    for d, lib in zip(dirs, libs):
+        try:
+            sass = {name: sass_summary(instrs)["total"] for name, instrs in
+                    cuobjdump_sass(lib).items() if "interp_kernel" in name}
+        except (OSError, subprocess.SubprocessError) as e:
+            sass = {"error": repr(e)}
+        res.setdefault("sass_total", {})[d] = sass
+        log(f"{d}: sass instructions " + json.dumps(sass))
+    log("interp-ab " + json.dumps(res))
+    return 0
+
+
+
 if __name__ == "__main__":
     for family in TIME_CASES:
         if sys.argv[1:2] == [f"--{family}-times"]:
             sys.exit(time_checkouts(family, sys.argv[2:]))
+    if sys.argv[1:2] == ["--interp-ab"]:
+        sys.exit(interp_ab(sys.argv[2:]))
     sys.exit(main())

@@ -117,7 +117,7 @@ def load_library() -> ctypes.CDLL:
     pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.mf_vertical_interp.argtypes = ([pp, pp, i] + [p] * 5
-                                       + [i, p, p] + [i] * 5 + [p])
+                                       + [i, p, p] + [i] * 5 + [p, ip])
     lib.mf_alevel_suite.argtypes = [p] * 8 + [ip, i, ip, p, p] + [i] * 4 + [p]
     lib.mf_hlevel_suite.argtypes = ([p] * 10 + [ip, i, ip, p, p] + [i] * 4
                                     + [p])

@@ -50,7 +50,12 @@
 //   the same two operations, so they agree wherever both apply;
 // - ln t of each target is taken once per block, into shared memory;
 // - every phase is a block-stride loop, so the source also runs on the
-//   host with one thread per block (tests/test_torch_vertical_host.py).
+//   host with one thread per block (tests/test_torch_vertical_host.py);
+// - a launch takes at most kGroupVars fields, their pointers in the
+//   parameter struct; the C entry launches once for each group of that
+//   many fields, each launch writing its own slice of the outputs, so a
+//   call takes any number of fields and a call of up to kGroupVars runs
+//   the one launch (and the same kernel) it always did.
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --interp-times,
 // the launch alone, 3 pairs against the walk): config 4, random ps,
 // masked 0.3172-0.3225 ms against 0.4159-0.4861; on a smooth ps of the
@@ -59,20 +64,23 @@
 // random ps the 32 columns of a warp bracket a near-surface target at up
 // to ~8 levels, so their loads touch several times the sectors they use.
 // Loading a group of 4 or 8 targets' brackets before their stores, and
-// streaming (evict-first) stores, were measured and were slower.
+// streaming (evict-first) stores, were measured and were slower.  At 40
+// fields (two launches, 31 + 9) the launches take 2.99 ms masked against
+// the bytes bound's 1.32 ms (chip_smoke.py phase 16): each launch repeats
+// the bracket search, which fields of one group share.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxVar = 31;      // the packed variant's limit (JAX)
+constexpr int kGroupVars = 31;   // fields a launch (the parameter struct)
 constexpr int kMaxLev = 4096;    // a, b and the targets in shared memory
 constexpr int kMaxTargets = 1024;
 constexpr int kBlock = 256;      // columns (and threads) a block
 
 struct InterpParams {
-  const float* f[kMaxVar];
-  const uint8_t* fm[kMaxVar];
+  const float* f[kGroupVars];
+  const uint8_t* fm[kGroupVars];
   const float* __restrict__ ps;
   const uint8_t* __restrict__ psm;
   const float* __restrict__ alevel;
@@ -192,59 +200,78 @@ interp_kernel(const InterpParams P) {
   }
 }
 
+template <bool kAllDefined>
+void launch(const InterpParams& P, bool log_p, dim3 grid, size_t smem,
+            cudaStream_t stream) {
+  if (log_p) {
+    interp_kernel<kAllDefined, true><<<grid, kBlock, smem, stream>>>(P);
+  } else {
+    interp_kernel<kAllDefined, false><<<grid, kBlock, smem, stream>>>(P);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns cudaGetLastError() as an int.
-// fvals / fmasks are host arrays of nvar device pointers (fmasks and psm
-// may be null when all_defined != 0: they are not read).  out_values is
-// [nvar, nt, ny, nx]; out_masks is [1, nt, ny, nx] when all_defined != 0,
-// else [nvar, nt, ny, nx].
+// Launches the kernel on `stream`, once for each group of at most
+// kGroupVars fields, and stores in *launched how many launches it made;
+// returns the first nonzero cudaGetLastError() as an int, or 0.  fvals /
+// fmasks are host arrays of nvar device pointers (fmasks and psm may be
+// null when all_defined != 0: they are not read).  out_values is [nvar,
+// nt, ny, nx]; out_masks is [1, nt, ny, nx] when all_defined != 0, else
+// [nvar, nt, ny, nx].
 int mf_vertical_interp(const float* const* fvals,
                        const uint8_t* const* fmasks, int nvar,
                        const float* ps, const uint8_t* psm,
                        const float* alevel, const float* blevel,
                        const float* targets, int nt, float* out_values,
                        uint8_t* out_masks, int nlev, int ny, int nx,
-                       int log_p, int all_defined, void* stream) {
-  if (nvar < 1 || nvar > kMaxVar || nt < 1 || nt > kMaxTargets ||
-      nlev < 1 || nlev > kMaxLev || ny < 1 || nx < 1) {
+                       int log_p, int all_defined, void* stream,
+                       int* launched) {
+  *launched = 0;
+  if (nvar < 1 || nt < 1 || nt > kMaxTargets || nlev < 1 ||
+      nlev > kMaxLev || ny < 1 || nx < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  InterpParams P{};
-  for (int v = 0; v < nvar; ++v) {
-    P.f[v] = fvals[v];
-    P.fm[v] = all_defined ? nullptr : fmasks[v];
-  }
-  P.ps = ps;
-  P.psm = psm;
-  P.alevel = alevel;
-  P.blevel = blevel;
-  P.targets = targets;
-  P.out_values = out_values;
-  P.out_masks = out_masks;
-  P.nvar = nvar;
-  P.nt = nt;
-  P.nlev = nlev;
-  P.plane = static_cast<int64_t>(ny) * nx;
-  const int64_t grid = (P.plane + kBlock - 1) / kBlock;
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int64_t grid = (plane + kBlock - 1) / kBlock;
   if (grid > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * 2 * (static_cast<size_t>(nlev) + nt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g(static_cast<unsigned>(grid));
-  if (all_defined) {
-    if (log_p) {
-      interp_kernel<true, true><<<g, kBlock, smem, s>>>(P);
-    } else {
-      interp_kernel<true, false><<<g, kBlock, smem, s>>>(P);
+  const int64_t n_out = plane * nt;     // one output field
+  for (int v0 = 0; v0 < nvar; v0 += kGroupVars) {
+    InterpParams P{};
+    P.nvar = nvar - v0 < kGroupVars ? nvar - v0 : kGroupVars;
+    for (int v = 0; v < P.nvar; ++v) {
+      P.f[v] = fvals[v0 + v];
+      P.fm[v] = all_defined ? nullptr : fmasks[v0 + v];
     }
-  } else if (log_p) {
-    interp_kernel<false, true><<<g, kBlock, smem, s>>>(P);
-  } else {
-    interp_kernel<false, false><<<g, kBlock, smem, s>>>(P);
+    P.ps = ps;
+    P.psm = psm;
+    P.alevel = alevel;
+    P.blevel = blevel;
+    P.targets = targets;
+    P.out_values = out_values + v0 * n_out;
+    P.nt = nt;
+    P.nlev = nlev;
+    P.plane = plane;
+    if (all_defined) {
+      // the fields share one mask plane, and every group writes it: the
+      // same bytes each time, since the gate reads only ps, a, b and the
+      // targets
+      P.out_masks = out_masks;
+      launch<true>(P, log_p != 0, g, smem, s);
+    } else {
+      P.out_masks = out_masks + v0 * n_out;
+      launch<false>(P, log_p != 0, g, smem, s);
+    }
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    ++*launched;
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 }  // extern "C"

@@ -70,15 +70,33 @@ class Field:
                                       device=self.values.device))
 
 
-def from_sentinel(values, undef: float = UNDEF, device=None) -> Field:
-    """Decode a sentinel-coded array: defined iff not NaN and not ``undef``."""
-    v = torch.as_tensor(values, dtype=torch.float32, device=device)
-    return Field(v, ~torch.isnan(v) & (v != f32(undef)))
+def _dtype(dtype) -> torch.dtype:
+    """A torch dtype, or a numpy one (``np.float32``, ``"float32"``,
+    ``jnp.bfloat16``, as a JAX-style caller passes it) as its torch
+    dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, np.dtype(dtype).name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"no torch dtype for {dtype!r}")
+    return out
 
 
-def from_values(values, mask=None, device=None) -> Field:
-    """Wrap an all-defined (or explicitly masked) array as a Field."""
-    v = torch.as_tensor(values, dtype=torch.float32, device=device)
+def from_sentinel(values, undef: float = UNDEF, dtype=torch.float32, *,
+                  device=None) -> Field:
+    """Decode a sentinel-coded array in ``dtype``: defined iff not NaN and
+    not ``undef`` in that dtype (as the JAX function compares)."""
+    v = torch.as_tensor(values, dtype=_dtype(dtype), device=device)
+    u = f32(undef) if v.dtype == torch.float32 else torch.tensor(
+        float(undef), dtype=torch.float64).to(v.dtype).item()
+    return Field(v, ~torch.isnan(v) & (v != u))
+
+
+def from_values(values, mask=None, dtype=torch.float32, *,
+                device=None) -> Field:
+    """Wrap an all-defined (or explicitly masked) array as a Field of
+    ``dtype``."""
+    v = torch.as_tensor(values, dtype=_dtype(dtype), device=device)
     if mask is None:
         m = torch.ones(v.shape, dtype=torch.bool, device=v.device)
     else:
@@ -99,9 +117,9 @@ def from_arrays(values, mask, device=None) -> Field:
     return Field(v, m)
 
 
-def full_undef(shape, device=None) -> Field:
-    """An all-undefined field (``fillUndef``)."""
-    return Field(torch.zeros(shape, dtype=torch.float32, device=device),
+def full_undef(shape, dtype=torch.float32, *, device=None) -> Field:
+    """An all-undefined field (``fillUndef``) of ``dtype``."""
+    return Field(torch.zeros(shape, dtype=_dtype(dtype), device=device),
                  torch.zeros(shape, dtype=torch.bool, device=device))
 
 

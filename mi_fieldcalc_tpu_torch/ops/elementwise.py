@@ -47,7 +47,7 @@ _T0 = float(t0)
 
 
 def _undef_like(f: Field) -> Field:
-    return full_undef(f.shape, f.values.device)
+    return full_undef(f.shape, device=f.values.device)
 
 
 def cvtemp(t: Field, compute: int) -> Field:

@@ -128,7 +128,7 @@ def plevelhum(t: Field, hum: Field, p: float, compute: int, unit: str = "",
     require(p > 0 and 0 < compute < 13, "plevelhum: bad p or compute")
     compute = _remap_hum_compute(compute, unit)
     if p == undef and compute not in (5, 6, 9, 10):
-        return full_undef(t.shape, t.values.device)
+        return full_undef(t.shape, device=t.values.device)
     tconv = float(_scalar_pidcp(p)) if compute % 2 == 0 else 1.0
     tdconv = float(t0) if compute >= 9 else 0.0
     tk = t.values * tconv

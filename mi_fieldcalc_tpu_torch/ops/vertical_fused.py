@@ -34,12 +34,15 @@ import torch
 
 from .._libm import log_f32
 from ..field import Field
-from ._harness import check_tensor, not_ported, require
+from ._harness import check_tensor, require
 
 __all__ = ["hlevel_to_plevel_fused", "hlevel_to_plevel_plain"]
 
-#: the kernel's limits (csrc/vertical_interp.cu)
-_MAX_VAR = 31
+#: the JAX rule's field limit of the packed and carrysel variants
+_PACKED_VARS = 31
+#: the kernel's limits (csrc/vertical_interp.cu): fields a launch (a call
+#: launches once per group of that many), levels and targets
+_GROUP_VARS = 31
 _MAX_LEV = 4096
 _MAX_TARGETS = 1024
 
@@ -110,33 +113,38 @@ def hlevel_to_plevel_fused(fields: Tuple[Field, ...], ps: Field,
     :func:`.vertical.hlevel_to_plevel`, same masks on monotone columns).
 
     Args:
-      fields: tuple of ``[nlev, ny, nx]`` Fields sharing one grid (at most
-        31, the JAX kernel's packed-variant limit).
+      fields: tuple of ``[nlev, ny, nx]`` Fields sharing one grid: any
+        number with ``variant="inplace"``, at most 31 with the other two
+        (the JAX rule: their mask carries pack one bit a field).
       ps: ``[ny, nx]`` surface-pressure Field (hPa).
       alevel, blevel: ``[nlev]`` hybrid coefficients.
       targets: target pressures (hPa).
+      variant: ``"packed"``, ``"inplace"`` or ``"carrysel"``, the JAX
+        kernel's three loop forms.  They compute the same outputs with
+        bit-identical bracket arithmetic, and here all three run the same
+        kernel and the same plain version.  One difference in the JAX
+        kernels does not carry over: at a degenerate bracket (equal
+        pressures, mask False) ``"carrysel"`` writes ``f_k`` where the
+        other two write ``f_k + (f_{k+1} - f_k) * w``; values under a
+        False mask are not part of the contract (``CONFORMANCE.md``), and
+        the port writes the latter under every name.
       all_defined: the caller asserts every input point (fields and ps)
         is defined: input masks are not read, and the output Fields share
         one mask tensor, the data-dependent bracket gate.
-      interpret, ty, unroll: the TPU kernel's tuning; ignored.  Only the
-        default ``variant="packed"`` is accepted (the JAX variants compute
-        the same).
+      interpret, ty, unroll: the TPU kernel's tuning; ignored.
 
     Returns a tuple of ``[len(targets), ny, nx]`` Fields.  On CUDA
-    tensors this launches the kernel and counts the launch in
-    ``hlevel_to_plevel_fused.launches``; on CPU tensors it runs
-    :func:`hlevel_to_plevel_plain`.
+    tensors this launches the kernel once for each group of up to 31
+    fields and counts each launch in ``hlevel_to_plevel_fused.launches``;
+    on CPU tensors it runs :func:`hlevel_to_plevel_plain`.
     """
     del interpret, ty, unroll
     fields = tuple(fields)
     nvar = len(fields)
     require(nvar >= 1, "hlevel_to_plevel_fused: no fields")
-    if variant != "packed":
-        raise not_ported("mi_fieldcalc_tpu.ops.vertical_fused."
-                         "hlevel_to_plevel_fused", f"variant={variant!r}")
-    require(nvar <= _MAX_VAR,
+    require(nvar <= _PACKED_VARS or variant == "inplace",
             "hlevel_to_plevel_fused: packed mask carries hold at most "
-            "31 fields")
+            "31 fields — use variant='inplace' beyond that")
     nlev, ny, nx = fields[0].values.shape
     for f in fields:
         require(tuple(f.values.shape) == (nlev, ny, nx),
@@ -145,6 +153,8 @@ def hlevel_to_plevel_fused(fields: Tuple[Field, ...], ps: Field,
             "hlevel_to_plevel_fused: ps must be (ny, nx)")
     targets = tuple(float(t) for t in targets)
     require(len(targets) >= 1, "hlevel_to_plevel_fused: no targets")
+    if variant not in ("carrysel", "inplace", "packed"):
+        raise ValueError(f"hlevel_to_plevel_fused: bad variant {variant!r}")
     dev = ps.values.device
     if dev.type == "cpu":
         return hlevel_to_plevel_plain(fields, ps, alevel, blevel, targets,
@@ -192,13 +202,15 @@ def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
         *[None if all_defined else f.mask.data_ptr() for f in fields])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        hlevel_to_plevel_fused.launches += 1
+        launched = ctypes.c_int(0)
         err = lib.mf_vertical_interp(
             vp, mp, nvar, ps.values.data_ptr(),
             None if all_defined else ps.mask.data_ptr(),
             alevel.data_ptr(), blevel.data_ptr(), tgt.data_ptr(), nt,
             values.data_ptr(), masks.data_ptr(), nlev, ny, nx, int(log_p),
-            int(all_defined), ctypes.c_void_p(stream))
+            int(all_defined), ctypes.c_void_p(stream),
+            ctypes.byref(launched))
+        hlevel_to_plevel_fused.launches += launched.value
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.mf_error_string(err).decode()}")

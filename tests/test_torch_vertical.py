@@ -32,7 +32,8 @@ import pytest
 import torch
 
 from mi_fieldcalc_tpu import _libm as jlibm
-from mi_fieldcalc_tpu.field import UNDEF, from_sentinel as j_from_sentinel
+from mi_fieldcalc_tpu.field import Field as JField, UNDEF
+from mi_fieldcalc_tpu.field import from_sentinel as j_from_sentinel
 from mi_fieldcalc_tpu.models.pipeline import (
     derived_fields_isobaric as j_isobaric,
 )
@@ -86,6 +87,11 @@ def _column_inputs(nlev=13, ny=21, nx=37, seed=5, undefs=True):
     return fields, j_from_sentinel(psv), al, bl
 
 
+def _jax_field(f: Field):
+    """A port Field carried into the JAX package."""
+    return JField(jnp.asarray(f.values.numpy()), jnp.asarray(f.mask.numpy()))
+
+
 def _assert_clear_of_levels(al, bl, ps, targets, ulps=4):
     """No target within ``ulps`` ulps (of 1024 hPa) of any level's
     pressure, computed exactly in float64, so that no rounding of
@@ -131,20 +137,10 @@ def test_hlevel_to_plevel_matches_jax_op_by_op(log_p):
                                    np.asarray(ref.values)[rm], rtol=2e-5)
 
 
-@pytest.mark.parametrize("log_p", [True, False])
-@pytest.mark.parametrize("all_defined", [False, True])
-def test_fused_plain_matches_jax_kernel(log_p, all_defined):
-    """The kernel's plain version against the JAX kernel
-    (``interpret=True``), masked with undefs in fields and ps, and
-    ``all_defined`` on fully defined inputs."""
-    fields, ps, al, bl = _column_inputs(seed=5 + all_defined,
-                                        undefs=not all_defined)
-    _assert_clear_of_levels(al, bl, np.asarray(ps.values), TARGETS)
-    ref = j_h2p_fused(tuple(fields), ps, al, bl, TARGETS, log_p=log_p,
-                      interpret=True, all_defined=all_defined)
-    got = vertical_fused.hlevel_to_plevel_fused(
-        tuple(_t(f) for f in fields), _t(ps), torch.from_numpy(al),
-        torch.from_numpy(bl), TARGETS, log_p=log_p, all_defined=all_defined)
+VARIANTS = ("packed", "inplace", "carrysel")
+
+
+def _assert_matches_jax_kernel(got, ref, all_defined):
     if all_defined:
         assert all(g.mask is got[0].mask for g in got)   # one shared plane
     for g, r in zip(got, ref):
@@ -156,6 +152,58 @@ def test_fused_plain_matches_jax_kernel(log_p, all_defined):
                                    atol=1e-6)
         # unbracketed lanes are 0, as the kernel writes them
         assert not g.values.numpy()[~rm & (np.asarray(r.values) == 0)].any()
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("log_p", [True, False])
+@pytest.mark.parametrize("all_defined", [False, True])
+def test_fused_plain_matches_jax_kernel(log_p, all_defined, variant):
+    """The kernel's plain version against the JAX kernel of the same
+    variant name (``interpret=True``), masked with undefs in fields and
+    ps, and ``all_defined`` on fully defined inputs."""
+    fields, ps, al, bl = _column_inputs(seed=5 + all_defined,
+                                        undefs=not all_defined)
+    _assert_clear_of_levels(al, bl, np.asarray(ps.values), TARGETS)
+    ref = j_h2p_fused(tuple(fields), ps, al, bl, TARGETS, log_p=log_p,
+                      interpret=True, variant=variant,
+                      all_defined=all_defined)
+    got = vertical_fused.hlevel_to_plevel_fused(
+        tuple(_t(f) for f in fields), _t(ps), torch.from_numpy(al),
+        torch.from_numpy(bl), TARGETS, log_p=log_p, variant=variant,
+        all_defined=all_defined)
+    _assert_matches_jax_kernel(got, ref, all_defined)
+
+
+@pytest.mark.parametrize("all_defined", [False, True])
+def test_fused_33_fields_inplace_matches_jax_kernel(all_defined):
+    """More fields than one launch takes (33 > 31) with
+    ``variant="inplace"``, the one JAX variant that accepts them, against
+    the JAX kernel at 6 levels x 8x16 -> 3 targets: masks bitwise, values
+    within rtol 2e-5 / atol 1e-6 on defined points."""
+    nlev, ny, nx, nvar = 6, 8, 16, 33
+    rng = np.random.default_rng(33 + all_defined)
+    al = np.sort(rng.uniform(0, 300, nlev)).astype(np.float32)
+    bl = np.sort(rng.uniform(0, 1, nlev)).astype(np.float32)
+    psv = rng.uniform(900, 1050, (ny, nx)).astype(np.float32)
+    if not all_defined:
+        psv[2, 3] = UNDEF
+    fields = []
+    for v in range(nvar):
+        fv = rng.normal(280 + v, 10, (nlev, ny, nx)).astype(np.float32)
+        if not all_defined:
+            fv[rng.random((nlev, ny, nx)) < 0.15] = UNDEF
+        fields.append(j_from_sentinel(fv))
+    ps = j_from_sentinel(psv)
+    targets = (950.0, 700.0, 400.0)
+    _assert_clear_of_levels(al, bl, psv, targets)
+    ref = j_h2p_fused(tuple(fields), ps, al, bl, targets, interpret=True,
+                      variant="inplace", all_defined=all_defined)
+    got = vertical_fused.hlevel_to_plevel_fused(
+        tuple(_t(f) for f in fields), _t(ps), torch.from_numpy(al),
+        torch.from_numpy(bl), targets, variant="inplace",
+        all_defined=all_defined)
+    assert len(got) == nvar
+    _assert_matches_jax_kernel(got, ref, all_defined)
 
 
 def _non_monotone_inputs(nlev=9, ny=4, nx=5):
@@ -368,12 +416,21 @@ def test_isobaric_and_interp_argument_errors():
     with pytest.raises(NotImplementedError, match="derived_fields_isobaric"):
         derived_fields_isobaric(*args, fused=True, global_shape=(8, 8))
     tk, ps = args[0], args[4]
-    with pytest.raises(NotImplementedError, match="hlevel_to_plevel_fused"):
+    # above 31 fields only "inplace", as the JAX function rules
+    many = vertical_fused.hlevel_to_plevel_fused(
+        (tk,) * 32, ps, args[5], args[6], (500.0,), variant="inplace")
+    assert len(many) == 32
+    for variant in ("packed", "carrysel", "nope"):
+        with pytest.raises(ValueError, match="at most 31 fields"):
+            vertical_fused.hlevel_to_plevel_fused(
+                (tk,) * 32, ps, args[5], args[6], (500.0,), variant=variant)
+        with pytest.raises(ValueError, match="at most 31 fields"):
+            j_h2p_fused((_jax_field(tk),) * 32, _jax_field(ps),
+                        args[5].numpy(), args[6].numpy(), (500.0,),
+                        interpret=True, variant=variant)
+    with pytest.raises(ValueError, match="bad variant 'nope'"):
         vertical_fused.hlevel_to_plevel_fused(
-            (tk,), ps, args[5], args[6], (500.0,), variant="inplace")
-    with pytest.raises(ValueError, match="31 fields"):
-        vertical_fused.hlevel_to_plevel_fused(
-            (tk,) * 32, ps, args[5], args[6], (500.0,))
+            (tk,), ps, args[5], args[6], (500.0,), variant="nope")
     with pytest.raises(ValueError, match="no targets"):
         vertical_fused.hlevel_to_plevel_fused((tk,), ps, args[5], args[6],
                                               ())
@@ -405,7 +462,7 @@ def test_kernel_sources_match_the_port():
                         ("kCent", 0.01), ("kMinNormal", 1.1754944e-38)):
         assert np.float32(consts[name]) == np.float32(value), name
     interp = (CSRC / "vertical_interp.cu").read_text()
-    for name, value in (("kMaxVar", vertical_fused._MAX_VAR),
+    for name, value in (("kGroupVars", vertical_fused._GROUP_VARS),
                         ("kMaxLev", vertical_fused._MAX_LEV),
                         ("kMaxTargets", vertical_fused._MAX_TARGETS)):
         assert re.search(rf"constexpr int {name} = (\d+);",
@@ -467,3 +524,33 @@ def test_cuda_interp_kernel_non_monotone(cuda_device):
     (ref,) = vertical_fused.hlevel_to_plevel_plain((ff,), ps, a, b, targets)
     assert torch.equal(got.mask, ref.mask)
     assert torch.equal(got.values, ref.values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("all_defined", [False, True])
+def test_cuda_interp_kernel_40_fields(cuda_device, variant, all_defined):
+    """40 fields: under "inplace" two launches (31 + 9 fields), bit for
+    bit the plain version; "packed" and "carrysel" refuse them."""
+    dev = cuda_device
+    fields, ps, al, bl = _column_inputs(undefs=not all_defined)
+    tf = tuple(from_arrays(np.asarray(fields[v % 3].values) + v,
+                           np.roll(np.asarray(fields[v % 3].mask), v, -1),
+                           device=dev) for v in range(40))
+    tps = from_arrays(np.asarray(ps.values), np.asarray(ps.mask), device=dev)
+    a, b = torch.from_numpy(al).to(dev), torch.from_numpy(bl).to(dev)
+    if variant != "inplace":
+        with pytest.raises(ValueError, match="at most 31 fields"):
+            vertical_fused.hlevel_to_plevel_fused(tf, tps, a, b, TARGETS,
+                                                  variant=variant)
+        return
+    before = vertical_fused.hlevel_to_plevel_fused.launches
+    got = vertical_fused.hlevel_to_plevel_fused(
+        tf, tps, a, b, TARGETS, variant=variant, all_defined=all_defined)
+    torch.cuda.synchronize()
+    assert vertical_fused.hlevel_to_plevel_fused.launches == before + 2
+    ref = vertical_fused.hlevel_to_plevel_plain(
+        tf, tps, a, b, TARGETS, all_defined=all_defined)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.mask, r.mask)
+        assert torch.equal(g.values, r.values)

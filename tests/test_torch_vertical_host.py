@@ -14,8 +14,11 @@ point.  The cases pin the kernel's two ways to a bracket, the binary search
 on columns whose pressure cannot decrease and the walk over every level
 pair elsewhere, to the rule "the last bracket wins": ties, non-monotone
 columns, targets on a level, ps NaN / +-inf / 1e35 / negative, a single
-level, no bracket at all, and a or b that fail the kernel's vote.  The card
-checks the same equality (``chip_smoke.py`` phases 6 and 7).
+level, no bracket at all, and a or b that fail the kernel's vote.  Calls of
+more fields than one launch takes (31) pin the C entry's grouping: one
+launch a group, counted by the entry itself, each writing its own slice,
+and under ``all_defined`` every group writing the one shared mask plane.  The card checks the
+same equality (``chip_smoke.py`` phases 6, 7 and 16).
 """
 
 import ctypes
@@ -35,18 +38,19 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "vertical_interp.cu", 4)
+    lib = host_library(tmp_path_factory, "vertical_interp.cu", 2)
     p, i = ctypes.c_void_p, ctypes.c_int
-    pp = ctypes.POINTER(ctypes.c_void_p)
+    pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     lib.mf_vertical_interp.argtypes = ([pp, pp, i] + [p] * 5 + [i, p, p]
-                                       + [i] * 5 + [p])
+                                       + [i] * 5 + [p, ip])
     lib.mf_vertical_interp.restype = i
     return lib
 
 
 def _host_interp(lib, fields, ps, a, b, targets, log_p, all_defined):
-    """One host launch of B2, arguments as the wrapper
-    (``vertical_fused._launch``) passes them."""
+    """One host call of B2's C entry, arguments as the wrapper
+    (``vertical_fused._launch``) passes them; the launches it reports are
+    one for each group of up to 31 fields."""
     nvar = len(fields)
     nlev, ny, nx = fields[0].values.shape
     nt = len(targets)
@@ -57,12 +61,15 @@ def _host_interp(lib, fields, ps, a, b, targets, log_p, all_defined):
     vp = (ctypes.c_void_p * nvar)(*[f.values.data_ptr() for f in fields])
     mp = (ctypes.c_void_p * nvar)(
         *[None if all_defined else f.mask.data_ptr() for f in fields])
+    launched = ctypes.c_int(-1)
     err = lib.mf_vertical_interp(
         vp, mp, nvar, ps.values.data_ptr(),
         None if all_defined else ps.mask.data_ptr(), a.data_ptr(),
         b.data_ptr(), tgt.data_ptr(), nt, values.data_ptr(),
-        masks.data_ptr(), nlev, ny, nx, int(log_p), int(all_defined), None)
+        masks.data_ptr(), nlev, ny, nx, int(log_p), int(all_defined), None,
+        ctypes.byref(launched))
     assert err == 0
+    assert launched.value == -(-nvar // 31), (nvar, launched.value)
     if all_defined:
         return tuple(Field(values[v], masks[0]) for v in range(nvar))
     return tuple(Field(values[v], masks[v]) for v in range(nvar))
@@ -201,3 +208,28 @@ def test_host_interp_no_target_bracketed(host_lib):
                  (5.0, 20.0, 1100.0, 2000.0), True, True, "none")
     assert not bool(got[0].mask.any())
     assert bool((got[0].values == 0.0).all())
+
+
+@pytest.mark.parametrize("nvar", [31, 32, 40])
+@pytest.mark.parametrize("all_defined", [False, True])
+def test_host_interp_field_groups(host_lib, nvar, all_defined):
+    """31, 32 and 40 fields (one launch, then a group of 31 and one of 1
+    or 9) on a grid of two blocks, masked and all-defined: every field's
+    values and mask bit for bit the plain version's, each field distinct,
+    so a group that read or wrote another group's slice would show."""
+    shape = (7, 5, 61)
+    raw = chip_smoke.make_column_inputs(*shape, seed=nvar, undef_frac=0.0)
+    rng = np.random.default_rng(nvar + all_defined)
+    fields = _fields(rng, nvar, *shape, 0.0 if all_defined else 0.1)
+    fields = tuple(Field(f.values + 3.0 * v, f.mask)
+                   for v, f in enumerate(fields))
+    ps = _ps(raw[4], [] if all_defined else [(2, 30)])
+    targets = (1000.0, 850.0, 700.0, 500.0, 300.0, 100.0)
+    got = _check(host_lib, fields, ps, raw[5], raw[6], targets, True,
+                 all_defined, (nvar, all_defined))
+    assert len(got) == nvar
+    if all_defined:
+        assert all(g.mask.data_ptr() == got[0].mask.data_ptr() for g in got)
+        assert bool(got[0].mask.any()) and not bool(got[0].mask.all())
+    else:
+        assert not torch.equal(got[0].mask, got[-1].mask)
