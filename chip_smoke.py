@@ -59,15 +59,18 @@ Phases (any failure raises and exits non-zero):
    and one request split into decode, H2D, prologues, kernels, D2H and
    encode;
 10. measurement probes (``mi_fieldcalc_tpu_torch/tools/``, kernels in
-   ``csrc/probes.cu``): P1 (the structure-matched copy of B1) at phase 3's
-   shapes and 32x719x929, P2 (x + 1 into nbuf outputs) at a ragged shape
-   and every case of its sweep, P3 (halo windows) at 32x256, a ragged and
-   a single-row case and B1's shape, P4 (the solver constructs) at 64x256
-   and 719x929, each equal to its plain version bit for bit; then, with
-   the probes' launch counts zeroed before and read after (each must be
-   > 0): B1 against P1 in turns on phase 5's inputs, masked and
-   all-defined (B1 first held to its plain version), B1's time over P1's and both against the bytes bound at
-   the published 3.35 TB/s; P2's sweep in GB/s beside ``torch.add(x, 1)``;
+   ``csrc/probes.cu``): P1 (B1's bytes at the best rate this card gives
+   them) at phase 3's shapes, at widths 4k+1 and 4k+3 over an odd row
+   count, and at 32x719x929 at every blocks-an-SM cap, P2 (x + 1 into nbuf
+   outputs) at a ragged shape, every case of its sweep and on an x one
+   float off its 16-byte boundary, P3 (halo windows) at 32x256, a ragged
+   and a single-row case and B1's shape, P4 (the solver constructs) at
+   64x256 and 719x929, each equal to its plain version bit for bit; then,
+   with the probes' launch counts zeroed before and read after (each must
+   be > 0): B1 against P1 in turns on phase 5's inputs, masked and
+   all-defined (B1 first held to its plain version), B1's time over P1's
+   and both against the bytes bound at the published 3.35 TB/s; P2's
+   sweep in GB/s beside ``torch.add(x, 1)``, each one-buffer row over it;
    P3 beside P2's one buffer; P4 against its operation count; and one
    masked ``run_derived_fields_np`` request under
    ``utils.profiling.trace``: the device's busy share of the request and
@@ -213,6 +216,16 @@ packages loaded side by side, each held to its plain version, the card
 warmed by 3 s of both launches, then 10 rounds in alternating order (A B,
 B A, ...) of 30 timed launches a case and checkout; the quartiles of each
 checkout's times and of its round medians, and each library's SASS counts.
+
+    python3 chip_smoke.py --probes-ab DIR_A DIR_B
+
+is the same for P1 and P2 at 32x719x929 (the rounds and counts are one
+helper, ``ab_rounds``): P1 masked and all-defined at every cap of
+``bench_copy.CAPS`` (phase 5's inputs), P2 at ``PROBE_AB_ADD1``, and
+``torch.add(x, 1)`` in the same rounds; each checkout's best cap, P2 over
+``torch.add``, the probes' ptxas lines and every kernel's SASS counts
+(B1-B6 too) are logged.  B1 / P1 is phase 10's, where the two are timed in
+turns.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
 line is a JSON object with the kernels' records, the last
@@ -2033,8 +2046,10 @@ def icing_time_cases(dev) -> dict:
 
 
 # --------------------------------------------------------------- phase 10
-#: P1's shapes: phase 3's and the headline; P3's ragged and single-row
-#: cases beside the tool's 32x256 and B1's shape
+#: P1's shapes: phase 3's, the headline, and the headline's width 4k+1 and
+#: the next 4k+3 over an odd row count (the last strip runs past ny); P3's
+#: ragged and single-row cases beside the tool's 32x256 and B1's shape
+PROBE_COPY_WIDTHS = ((3, 17, 4 * 232 + 1), (3, 17, 4 * 232 + 3))
 PROBE_WINDOW_CASES = (((32, 256), 8), ((2, 37, 300), 8), ((1, 1, 5), 32))
 
 
@@ -2052,22 +2067,28 @@ def _exact(got, ref, label: str) -> float:
 
 def phase_probe_kernels(dev) -> dict:
     """Each probe kernel against its plain version on the card, bit for
-    bit: P1 at phase 3's shapes and the headline 32x719x929 (there also
-    capped at 2 blocks an SM), masked and all-defined; P2 at a ragged shape and every case of its sweep at
-    32x719x929; P3 at PROBE_WINDOW_CASES and B1's shape with each window
+    bit: P1 at phase 3's shapes, PROBE_COPY_WIDTHS and the headline
+    32x719x929 (there at every cap of ``bench_copy.CAPS``), masked and
+    all-defined; P2 at a ragged shape, every case of its sweep at
+    32x719x929, and on an x one float past its allocation's 16-byte
+    boundary (the outputs on theirs: 4-byte accesses) in a flat and a
+    tiled case, and at 70000 one-row units of 1024 floats (more row blocks
+    than a grid's y may hold); P3 at PROBE_WINDOW_CASES and B1's shape with each window
     height; P4 at the tool's 64x256 and at 719x929.  Returns each probe's
     largest absolute difference (0.0)."""
     from mi_fieldcalc_tpu_torch.tools import (
         bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel)
     import torch
     err = {"copy": 0.0, "add1": 0.0, "window": 0.0, "solver": 0.0}
-    for shape in SHAPES + ((NLEV, NY, NX),):
+    copy_shapes = SHAPES + PROBE_COPY_WIDTHS + ((NLEV, NY, NX),)
+    for shape in copy_shapes:
         for ad in (False, True):
             args = bench_copy.probe_inputs(*shape, seed=sum(shape),
                                            all_defined=ad, device=dev)
             sel = args[:5] + args[7:9]
             ref = bench_copy.copy_probe_plain(*sel, ad)
-            for cap in ((None, 2) if shape == (NLEV, NY, NX) else (None,)):
+            for cap in (bench_copy.CAPS if shape == (NLEV, NY, NX)
+                        else (None,)):
                 err["copy"] = max(err["copy"], _exact(
                     bench_copy.copy_probe(*sel, ad, cap), ref,
                     f"copy {shape} {ad} cap {cap}"))
@@ -2075,13 +2096,19 @@ def phase_probe_kernels(dev) -> dict:
     x = torch.randn((3, 37, 41), generator=gen, device=dev)
     cases = [(x, 8, 3, 256)] + [(None, *c) for c in perf_lab_dma.cases(NY)]
     x = torch.randn((NLEV, NY, NX), generator=gen, device=dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    cases += [(shifted, NY, 1, 256), (shifted, 48, 2, 256),
+              (torch.randn((1, 70000, 1024), generator=gen, device=dev), 1,
+               1, 32)]
     for xc, ty, nbuf, threads in cases:
         xc = x if xc is None else xc
         err["add1"] = max(err["add1"], _exact(
             perf_lab_dma.add1(xc, nbuf, ty, threads),
             perf_lab_dma.add1_plain(xc, nbuf),
-            f"add1 {tuple(xc.shape)} ty={ty} nbuf={nbuf}"))
-    del x
+            f"add1 {tuple(xc.shape)} ty={ty} nbuf={nbuf} "
+            f"at {xc.data_ptr() % 16} bytes past 16"))
+    del x, shifted
     for shape, ty in PROBE_WINDOW_CASES:
         x = torch.randn(shape, generator=gen, device=dev)
         y = torch.randn((1,) * (3 - len(shape)) + shape, generator=gen,
@@ -2103,7 +2130,7 @@ def phase_probe_kernels(dev) -> dict:
             probe_mincog_kernel.solver_plain(c0, a, decay),
             f"solver {shape}"))
     log("probe kernels == plain versions bit for bit: P1 at "
-        f"{len(SHAPES) + 1} shapes x 2 routes, P2 at {len(cases)} cases, "
+        f"{len(copy_shapes)} shapes x 2 routes, P2 at {len(cases)} cases, "
         f"P3 at {len(PROBE_WINDOW_CASES) + 2}, P4 at 2; max abs err {err}")
     return err
 
@@ -2169,6 +2196,7 @@ def phase_probe_times(dev, smi: str, reps=10) -> dict:
                == (48, 1, 256))
     res["add1"] = {"rows": rows, "ms": one["ms"],
                    "library_ms": rows[0]["ms"],
+                   "over_library": one["ms"] / rows[0]["ms"],
                    "plain_ms": statistics.median(time_ms(
                        lambda: perf_lab_dma.add1_plain(x), reps)),
                    "bytes": 8 * x.numel(), "bound_ms": 8 * x.numel() / hbm
@@ -2177,7 +2205,13 @@ def phase_probe_times(dev, smi: str, reps=10) -> dict:
         what = (r["case"] if r["ty"] is None else
                 f"{r['case']} ty={r['ty']} bufs={r['nbuf']} "
                 f"threads={r['threads']}")
-        log(f"[{smi}] P2 {what}: {r['ms']:.4f} ms, {r['gbps']:.1f} GB/s")
+        log(f"[{smi}] P2 {what}: {r['ms']:.4f} ms, {r['gbps']:.1f} GB/s"
+            + ("" if r["ty"] is None or r["nbuf"] != 1 else
+               f", {r['ms'] / rows[0]['ms']:.3f}x torch.add"))
+    log(f"[{smi}] P2 / torch.add(x, 1) at ty 48, 1 buffer, 256 threads: "
+        f"{res['add1']['over_library']:.3f}; B1 / P1: masked "
+        f"{res['copy_masked']['b1_over_probe']:.3f}, all-defined "
+        f"{res['copy_all_defined']['b1_over_probe']:.3f}")
 
     # P3: the tool's case and B1's shape beside P2's one buffer
     xt = torch.arange(32 * 256, dtype=torch.float32,
@@ -4265,6 +4299,21 @@ def cuobjdump_sass(path) -> dict:
         check=True, timeout=300).stdout)
 
 
+def ptxas_lines(lib: str, pattern: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, shared memory, spills) that the
+    build kept beside ``lib`` for the kernels whose names hold
+    ``pattern``."""
+    report = Path(lib + ".log")
+    out, ours = [], False
+    for line in (report.read_text().splitlines() if report.is_file()
+                 else ()):
+        if "entry function" in line or "Function properties" in line:
+            ours = pattern in line
+        if ours:
+            out.append(line.strip())
+    return out
+
+
 def time_checkouts(family: str, dirs) -> int:
     """``TIME_CASES[family]`` alone in each checkout of ``dirs`` in turn,
     one process (and one build) each, with the SM clock before and after,
@@ -4277,9 +4326,7 @@ def time_checkouts(family: str, dirs) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     pattern = TIME_CASES[family][1]
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True, timeout=60).stdout.strip())
+    log(smi_line())
     for d in dirs:
         clock = sm_clock()
         proc = subprocess.run(
@@ -4299,14 +4346,8 @@ def time_checkouts(family: str, dirs) -> int:
             print(f"{d}: a kernel differs from its plain version",
                   file=sys.stderr)
             return 1
-        report = Path(lib + ".log")
-        ours = False
-        for line in (report.read_text().splitlines() if report.is_file()
-                     else ()):
-            if "entry function" in line or "Function properties" in line:
-                ours = pattern in line
-            if ours:
-                log(f"{d}:   ptxas: {line.strip()}")
+        for line in ptxas_lines(lib, pattern):
+            log(f"{d}:   ptxas: {line}")
         try:
             sass = {name: sass_summary(instrs) for name, instrs in
                     cuobjdump_sass(lib).items() if pattern in name}
@@ -4643,17 +4684,91 @@ def quartiles(xs) -> list:
     return [float(q) for q in np.percentile(np.asarray(xs), (25, 50, 75))]
 
 
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
+def ab_rounds(dirs, libs, cases: dict, run, rounds: int, reps: int,
+              warm_s: float, sass_names=None) -> dict:
+    """Time ``cases`` in the checkouts ``dirs`` within this one process.
+    ``run(k, label)`` launches case ``label`` of checkout ``k`` (each
+    already held to its plain version).  The card is warmed by ``warm_s``
+    seconds of every case of every checkout (the SM clock read before and
+    after), then ``rounds`` rounds, the checkouts in order and in reverse
+    in turn, each timing every case ``reps`` times a checkout (the launch
+    alone, :func:`time_device_ms`).  Logs and returns the quartiles of each
+    checkout's samples and of its round medians, the rounds in which each
+    later checkout was faster than the first, and the SASS instruction
+    counts of each library's kernels whose names hold one of
+    ``sass_names`` (every kernel when None), with its 128-bit global
+    loads and stores."""
+    import torch
+
+    def wide(instrs, op):
+        return sum(i.split()[0].split(".")[0] == op
+                   and ".128" in i.split()[0] for i in instrs)
+
+    n = len(dirs)
+    clock = [sm_clock()]
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        for label in cases:
+            for k in range(n):
+                run(k, label)
+        torch.cuda.synchronize()
+    clock.append(sm_clock())
+    samples = {label: [[] for _ in dirs] for label in cases}
+    round_medians = {label: [[] for _ in dirs] for label in cases}
+    for r in range(rounds):
+        for k in (range(n) if r % 2 == 0 else reversed(range(n))):
+            for label in cases:
+                ms = time_device_ms(lambda: run(k, label), reps)
+                samples[label][k] += ms
+                round_medians[label][k].append(statistics.median(ms))
+    clock.append(sm_clock())
+    res = {"dirs": list(dirs), "rounds": rounds, "reps": reps,
+           "sm_clock_mhz": clock, "cases": {}}
+    for label in cases:
+        q = [quartiles(x) for x in samples[label]]
+        rq = [quartiles(x) for x in round_medians[label]]
+        faster = [sum(y < x for x, y in zip(round_medians[label][0],
+                                            round_medians[label][k]))
+                  for k in range(n)]
+        res["cases"][label] = {"quartiles_ms": q, "round_quartiles_ms": rq,
+                               "round_medians_ms": round_medians[label],
+                               "rounds_faster_than_first": faster}
+        log(f"{label}: " + "; ".join(
+            f"{'AB'[k]} {dirs[k]} median {q[k][1]:.4f} ms "
+            f"(quartiles {q[k][0]:.4f}-{q[k][2]:.4f}; round medians "
+            f"{rq[k][0]:.4f}-{rq[k][2]:.4f})"
+            + ("" if k == 0 else f", faster than {dirs[0]} in {faster[k]} "
+               f"of {rounds} rounds") for k in range(n)))
+    log(f"SM clock {clock} MHz: before the warm-up, after it, after the "
+        f"rounds")
+    for d, lib in zip(dirs, libs):
+        try:
+            sass = {name: {"total": sass_summary(instrs)["total"],
+                           "ldg128": wide(instrs, "LDG"),
+                           "stg128": wide(instrs, "STG")}
+                    for name, instrs in cuobjdump_sass(lib).items()
+                    if sass_names is None
+                    or any(x in name for x in sass_names)}
+        except (OSError, subprocess.SubprocessError) as e:
+            sass = {"error": repr(e)}
+        res.setdefault("sass", {})[d] = sass
+        log(f"{d}: sass instructions " + json.dumps(sass))
+    return res
+
+
 def interp_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
     """``--interp-ab DIR_A DIR_B``: B2 at config 4 (the four cases of
     :func:`interp_time_cases`) from the packages of two checkouts, loaded
-    side by side in this one process.  Each checkout's launch is held to
-    its plain version bit for bit, the card is warmed by ``warm_s``
-    seconds of both launches (the SM clock read before and after), then
-    ``rounds`` rounds, A B and B A in turn, each timing every case
-    ``reps`` times a checkout (the launch alone, :func:`time_device_ms`).
-    Logs the quartiles of each checkout's samples and of its round
-    medians, the rounds in which B was faster, and the SASS counts of each
-    library's interp kernels."""
+    side by side in this one process, each checkout's launch held to its
+    plain version bit for bit, then timed in turns by :func:`ab_rounds`
+    with the SASS counts of each library's interp kernels."""
     import importlib
     import torch
     if len(dirs) != 2 or not torch.cuda.is_available():
@@ -4665,9 +4780,7 @@ def interp_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
     from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS as tg
     from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
     dev = torch.device("cuda", 0)
-    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True, timeout=60).stdout.strip())
+    log(smi_line())
     pkgs = [checkout_package(d, f"ab_checkout_{k}")
             for k, d in enumerate(dirs)]
     vfs = [importlib.import_module(f"{p.__name__}.ops.vertical_fused")
@@ -4694,50 +4807,116 @@ def interp_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
         for k in range(2):
             compare_fields_exact(run(k, label), ref, f"{dirs[k]} {label}")
         del ref
-    clock = [sm_clock()]
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < warm_s:
-        for label in cases:
-            for k in range(2):
-                run(k, label)
-        torch.cuda.synchronize(dev)
-    clock.append(sm_clock())
-    samples = {label: [[], []] for label in cases}
-    round_medians = {label: [[], []] for label in cases}
-    for r in range(rounds):
-        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
-            for label in cases:
-                ms = time_device_ms(lambda: run(k, label), reps)
-                samples[label][k] += ms
-                round_medians[label][k].append(statistics.median(ms))
-    clock.append(sm_clock())
-    res = {"dirs": list(dirs), "rounds": rounds, "reps": reps,
-           "sm_clock_mhz": clock, "cases": {}}
-    for label in cases:
-        q = [quartiles(samples[label][k]) for k in range(2)]
-        rq = [quartiles(round_medians[label][k]) for k in range(2)]
-        b_faster = sum(y < x for x, y in zip(*round_medians[label]))
-        res["cases"][label] = {"quartiles_ms": q, "round_quartiles_ms": rq,
-                               "round_medians_ms": round_medians[label],
-                               "rounds_b_faster": b_faster}
-        log(f"{label}: A {dirs[0]} median {q[0][1]:.4f} ms (quartiles "
-            f"{q[0][0]:.4f}-{q[0][2]:.4f}; round medians {rq[0][0]:.4f}-"
-            f"{rq[0][2]:.4f}), B {dirs[1]} {q[1][1]:.4f} ({q[1][0]:.4f}-"
-            f"{q[1][2]:.4f}; {rq[1][0]:.4f}-{rq[1][2]:.4f}); B faster in "
-            f"{b_faster} of {rounds} rounds")
-    log(f"SM clock {clock} MHz: before the warm-up, after it, after the "
-        f"rounds")
-    for d, lib in zip(dirs, libs):
-        try:
-            sass = {name: sass_summary(instrs)["total"] for name, instrs in
-                    cuobjdump_sass(lib).items() if "interp_kernel" in name}
-        except (OSError, subprocess.SubprocessError) as e:
-            sass = {"error": repr(e)}
-        res.setdefault("sass_total", {})[d] = sass
-        log(f"{d}: sass instructions " + json.dumps(sass))
+    res = ab_rounds(dirs, libs, cases, run, rounds, reps, warm_s,
+                    ("interp_kernel",))
     log("interp-ab " + json.dumps(res))
     return 0
 
+
+#: --probes-ab: P2's (ty, nbuf, threads) cases, ``ny`` standing for the
+#: flat variant
+PROBE_AB_ADD1 = ((48, 1, 256), (4, 1, 256), (48, 12, 256), ("ny", 1, 256))
+
+
+def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
+    """``--probes-ab DIR_A DIR_B``: P1 and P2 at 32x719x929 from the
+    packages of two checkouts, loaded side by side in this one process: P1
+    masked and all-defined (phase 5's inputs) at every cap of
+    ``bench_copy.CAPS``, P2 at :data:`PROBE_AB_ADD1`, and ``torch.add(x,
+    1)`` on the same x in the same rounds.  Each checkout's launches are
+    held to the plain versions bit for bit first; then :func:`ab_rounds`
+    times them in turns and logs every library's SASS counts (B1-B6 and
+    the probes).  Logs each checkout's best cap a route and P2 over
+    ``torch.add``.  B1 / P1 is phase 10's, which times the two in turns."""
+    import importlib
+    import torch
+    if len(dirs) != 2 or not torch.cuda.is_available():
+        print("chip_smoke --probes-ab: needs two checkouts and a CUDA "
+              "device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.tools import bench_copy, perf_lab_dma
+    dev = torch.device("cuda", 0)
+    log(smi_line())
+    pkgs = [checkout_package(d, f"ab_checkout_{k}")
+            for k, d in enumerate(dirs)]
+    copies = [importlib.import_module(f"{p.__name__}.tools.bench_copy")
+              for p in pkgs]
+    dmas = [importlib.import_module(f"{p.__name__}.tools.perf_lab_dma")
+            for p in pkgs]
+    libs = [str(importlib.import_module(f"{p.__name__}._build").build())
+            for p in pkgs]
+    staged = {}
+    for ad, undefs in ((False, True), (True, False)):
+        host, got = staging._decode_step(make_inputs(NLEV, NY, NX, 4, undefs,
+                                                     "column"),
+                                         staging.HostStager(4), 1e35)
+        assert got == ad
+        staged[ad] = staging._upload_step(host, dev)
+    x = torch.randn((NLEV, NY, NX), generator=torch.Generator(device=dev)
+                    .manual_seed(0), device=dev)
+    cases = {}
+    for ad in (False, True):
+        for cap in bench_copy.CAPS:
+            cases[f"P1 {'all_defined' if ad else 'masked'} cap {cap}"] = (
+                "copy", ad, cap)
+    for ty, nbuf, threads in PROBE_AB_ADD1:
+        ty = NY if ty == "ny" else ty
+        cases[f"P2 ty={ty} nbuf={nbuf} threads={threads}"] = (
+            "add1", nbuf, ty, threads)
+    cases["torch.add(x, 1)"] = ("library",)
+
+    def run(k, label):
+        case = cases[label]
+        if case[0] == "copy":
+            args = staged[case[1]]
+            return copies[k].copy_probe(*args[:5], *args[7:9], case[1],
+                                        case[2])
+        if case[0] == "add1":
+            return dmas[k].add1(x, *case[1:])
+        return torch.add(x, 1.0)
+
+    for ad in (False, True):
+        args = staged[ad]
+        ref = bench_copy.copy_probe_plain(*args[:5], *args[7:9], ad)
+        for label, case in cases.items():
+            if case[:2] == ("copy", ad):
+                for k in range(2):
+                    _exact(run(k, label), ref, f"{dirs[k]} {label}")
+        del ref
+    for label, case in cases.items():
+        if case[0] == "add1":
+            ref = perf_lab_dma.add1_plain(x, case[1])
+            for k in range(2):
+                _exact(run(k, label), ref, f"{dirs[k]} {label}")
+            del ref
+    for d, lib in zip(dirs, libs):
+        for pattern in ("copy_kernel", "add1_kernel"):
+            for line in ptxas_lines(lib, pattern):
+                log(f"{d}:   ptxas: {line}")
+    res = ab_rounds(dirs, libs, cases, run, rounds, reps, warm_s)
+    med = {label: [q[1] for q in c["quartiles_ms"]]
+           for label, c in res["cases"].items()}
+    add1_1 = "P2 ty={} nbuf={} threads={}".format(*PROBE_AB_ADD1[0])
+    res["summary"] = {}
+    for k, d in enumerate(dirs):
+        best = {}
+        for ad in (False, True):
+            route = "all_defined" if ad else "masked"
+            cap = min(bench_copy.CAPS, key=lambda c: med[
+                f"P1 {route} cap {c}"][k])
+            best[route] = {"cap": cap, "ms": med[f"P1 {route} cap {cap}"][k]}
+        best["p2_over_torch_add"] = (med[add1_1][k]
+                                     / med["torch.add(x, 1)"][k])
+        res["summary"][d] = best
+        log(f"{d}: P1 masked {best['masked']['ms']:.4f} ms at cap "
+            f"{best['masked']['cap']}, all-defined "
+            f"{best['all_defined']['ms']:.4f} ms at cap "
+            f"{best['all_defined']['cap']}; P2 {PROBE_AB_ADD1[0]} / torch.add "
+            f"{best['p2_over_torch_add']:.3f}")
+    log("probes-ab " + json.dumps(res))
+    return 0
 
 
 if __name__ == "__main__":
@@ -4746,4 +4925,6 @@ if __name__ == "__main__":
             sys.exit(time_checkouts(family, sys.argv[2:]))
     if sys.argv[1:2] == ["--interp-ab"]:
         sys.exit(interp_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--probes-ab"]:
+        sys.exit(probes_ab(sys.argv[2:]))
     sys.exit(main())

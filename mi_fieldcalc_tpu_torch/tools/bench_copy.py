@@ -1,27 +1,32 @@
-"""P1, the structure-matched copy of the pipeline kernel B1.
+"""P1: B1's bytes, moved at the best rate this card gives them.
 
 Port of the copy probe ``_ck`` inside ``bench.main`` (``bench.py:212``,
 ``pallas_call`` :233), which gave the TPU benchmark its attainable rate:
-the kernel's reads and writes with trivial compute.  On the H100 the
-probe reads what B1 (``csrc/derived_fields.cu``) reads at each point and
-writes what it writes, on B1's grid (``csrc/probes.cu`` ``copy_kernel``):
+the pipeline kernel's reads and writes with trivial compute.  What the
+probe (``csrc/probes.cu`` ``copy_kernel``) keeps of B1
+(``csrc/derived_fields.cu``) is its inputs and outputs in their layout,
+and so its bytes (:func:`copy_bytes`):
 
 * ``s`` = the centres of tk, q, u, v and ps, then the x-1, x+1, y-1, y+1
-  neighbours of tk, u and v at the clamped point (B1's ``fillEdges``
-  point), then xmapr and ymapr there, summed in that order;
+  neighbours of tk, u and v at the clamped point (``cy``, ``cx`` in [1,
+  n-2], B1's ``fillEdges`` point), then xmapr and ymapr there, summed in
+  that order (18 adds);
 * values ``[12, nlev, ny, nx]``: plane k is ``s + k``;
 * masks ``[9, nlev, ny, nx]``: every plane the AND of the masks of tk, q,
   u, v and ps; with ``all_defined`` 2 planes of True and no mask read, as
   B1's all-defined route.
 
-The TPU probe's per-tile halo rows (``bench.py:215-216``) are an artefact
-of its padded tiling and are not carried over.  With no compute between
-its 21 stores a thread, the copy at full occupancy runs slower than B1;
-``blocks_per_sm`` reserves shared memory a block to cap the blocks an SM
-holds, and the probe's attainable time is its fastest cap's
-(:data:`CAPS`).  That time beside B1's, on the same inputs in the same
-run, says how close B1 comes to the rate its access pattern attains on
-this card:
+What it drops is B1's per-point store order: a block stages a strip of
+full-width rows of one level in shared memory with 16-byte copies (ps and
+the map factors, which the L2 keeps, it reads at each point), computes
+``s`` and the mask AND once a point, and writes plane by plane in 16-byte
+stores.  Its time is the best this card gives B1's bytes, and B1's time
+over it says how much B1 could still gain (above 1) or that the
+yardstick is still wrong (below 1).  The TPU probe's per-tile halo
+rows (``bench.py:215-216``) are an artefact of its padded tiling and are
+not carried over.  ``blocks_per_sm`` reserves shared memory a block to
+cap the blocks an SM holds, and the probe's attainable time is its
+fastest cap's (:data:`CAPS`):
 
     python -m mi_fieldcalc_tpu_torch.tools.bench_copy [--device cpu]
 """
@@ -42,10 +47,10 @@ __all__ = ["copy_probe", "copy_probe_plain", "copy_bytes", "probe_inputs",
 
 #: the lab's shape: the headline 32-level AROME stack (bench.py:81)
 SHAPE = (32, 719, 929)
-#: the CUDA grid's limits (B1's): gridDim.y = ceil(ny/8), gridDim.z = nlev
-_MAX_NY = 8 * 65535
+#: the CUDA grid's limit: gridDim.y = nlev
 _MAX_NLEV = 65535
-#: blocks an SM may hold, timed in turn (None: no cap, 8 at 256 threads)
+#: blocks an SM may hold, timed in turn (None: as many as the kernel's
+#: shared memory and registers let)
 CAPS = (None, 4, 3, 2, 1)
 #: a Hopper SM's shared memory, of which the runtime keeps 1 KB a block
 _SMEM_PER_SM = 228 * 1024
@@ -97,15 +102,16 @@ def copy_probe(tk: Field, q: Field, u: Field, v: Field, ps: Field,
     """The copy probe: ``(values f32[12, nlev, ny, nx], masks bool[9 (2
     when all_defined), nlev, ny, nx])``.  On CUDA tensors this launches
     ``copy_kernel``, at most ``blocks_per_sm`` blocks an SM (None: as
-    many as fit), and counts the launch in ``copy_probe.launches``; on
-    CPU tensors it runs :func:`copy_probe_plain`."""
+    many as its shared memory and registers let), and counts the launch in
+    ``copy_probe.launches``; on CPU tensors it runs
+    :func:`copy_probe_plain`."""
     if not _lab.route("copy_probe", tk.values):
         return copy_probe_plain(tk, q, u, v, ps, xmapr, ymapr, all_defined)
     dev = tk.values.device
     if tk.values.dim() != 3:
         raise ValueError("copy_probe: tk must be [nlev, ny, nx]")
     nlev, ny, nx = tk.values.shape
-    if not (3 <= ny <= _MAX_NY and nx >= 3 and nlev <= _MAX_NLEV):
+    if not (ny >= 3 and nx >= 3 and nlev <= _MAX_NLEV):
         raise ValueError(f"copy_probe: unsupported grid ({nlev}, {ny}, "
                          f"{nx}); need ny, nx >= 3")
     f32, b8 = torch.float32, torch.bool

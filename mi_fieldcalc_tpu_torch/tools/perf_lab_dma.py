@@ -3,13 +3,17 @@ shapes.
 
 Port of ``tools/perf_lab_dma.py`` (``pallas_add1(ty, nbuf)`` :43,
 ``pallas_call`` :57; ``pallas_add1_flat`` :72, :80), which priced the
-TPU's per-grid-step and per-buffer DMA cost.  On the H100
-(``csrc/probes.cu`` ``add1_kernel``) the grid is ``(ceil(ny / ty),
-nlev)`` and each block's ``threads`` stride over its ``ty`` rows of one
-level; the input is read once for each output, as the TPU probe passes it
-``nbuf`` times.  ``ty = ny`` is the flat variant, one block a level.  The
-sweep asks how many concurrent output streams, and what block shape,
-still reach the copy rate:
+TPU's per-grid-step and per-buffer DMA cost.  A unit of work is ``ty``
+rows of one level (``ty >= ny``: the flat variant, one unit a level), and
+the input is read once for each output, as the TPU probe passes it
+``nbuf`` times.  On the H100 (``csrc/probes.cu`` ``add1_kernel``) a block
+of ``threads`` takes a span of 4 to 8 float4 a thread: a piece of a long
+unit, or several short units whole, so that thousands of blocks fill
+every SM whatever ``ty`` is; it moves the span in 16-byte accesses,
+several loads in flight before their stores (4-byte ones when x and the
+outputs lie at different 16-byte phases).  At one buffer the kernel is
+held to ``torch.add(x, 1)``; the buffer rows ask what rate many
+concurrent output streams reach on this card:
 
     python -m mi_fieldcalc_tpu_torch.tools.perf_lab_dma [--device cpu]
 """
@@ -27,11 +31,11 @@ __all__ = ["add1", "add1_plain", "cases", "sweep", "SWEEP", "main"]
 
 #: the lab's array (perf_lab_dma.py:22)
 SHAPE = (32, 719, 929)
-#: (ty, nbuf) of the TPU lab (perf_lab_dma.py:98-99), then shorter blocks
-#: the TPU lab had no reason to try: more blocks, so more loads in flight
+#: (ty, nbuf) of the TPU lab (perf_lab_dma.py:98-99), then shorter units
+#: the TPU lab had no reason to try
 SWEEP = ((48, 1), (48, 6), (48, 12), (48, 24), (32, 1), (96, 1), (96, 12),
          (1, 1), (4, 1), (8, 1), (4, 12), (8, 12))
-#: threads a block strides over its rows with
+#: threads a block
 THREADS = (256, 512)
 _MAX_BUFFERS = 32
 

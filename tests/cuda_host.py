@@ -4,14 +4,20 @@ A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
 C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
 ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
 ``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``
-is a plain add, ``__int_as_float`` is a ``memcpy``, ``common.cuh``'s
+is a plain add, ``__int_as_float`` is a ``memcpy``, ``float4`` and
+``uint4`` are 16-byte aligned structs, ``__stcs`` a plain store, the card
+has 3 SMs that hold one
+block each (``cudaDeviceGetAttribute``,
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), ``common.cuh``'s
 ``dynamic_shared<T>()`` is one static 1 MiB buffer, and each
 ``<<<grid, block>>>`` launch becomes a host loop over ``blockIdx`` (z, y,
 then x) that runs each block as one thread (``blockDim`` = 1 in every
-dimension).  That is right
+dimension, ``gridDim`` the grid).  That is right
 for kernels whose every phase is a block-stride loop: one thread runs all
 of its block's work in turn.  With ``-ffp-contract=off`` every float
-operation rounds on its own, as the card's ``-fmad=false`` build does, so
+operation rounds on its own, as the card's ``-fmad=false`` build does, and
+with ``-fno-strict-aliasing`` a kernel may read its shared buffers through
+the types it stages them as (bytes as words, floats as ``float4``), so
 the kernels' arithmetic can be held bit for bit to the plain versions where
 no card is.
 """
@@ -34,10 +40,11 @@ SHIM = r"""
 #include <stdint.h>
 #include <algorithm>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __constant__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -62,11 +69,31 @@ static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
 static const int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class K>
 static inline cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
+// a card of 3 SMs holding 1 block each, so that a grid sized from them
+// leaves each block several units of work
+static const int cudaDevAttrMultiProcessorCount = 16;
+static inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+static inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 3;
+  return 0;
+}
+template <class K>
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-static dim3 blockIdx, threadIdx, blockDim;
+static dim3 blockIdx, threadIdx, blockDim, gridDim;
 static inline float __int_as_float(int i) {
   float f;
   memcpy(&f, &i, 4);
@@ -78,6 +105,7 @@ static inline int __float_as_int(float f) {
   return i;
 }
 template <class T> static inline T __ldg(const T* p) { return *p; }
+template <class T> static inline void __stcs(T* p, T v) { *p = v; }
 static inline const char* cudaGetErrorString(int) { return "host error"; }
 // common.cuh's dynamic shared memory: one static buffer (blocks run one
 // after the other)
@@ -91,6 +119,7 @@ using std::max;
 template <class K, class P>
 void host_launch(K kernel, dim3 grid, dim3, const P& params) {
   blockDim = dim3(1);
+  gridDim = grid;
   threadIdx = dim3(0, 0, 0);
   for (unsigned z = 0; z < grid.z; ++z) {
     for (unsigned y = 0; y < grid.y; ++y) {
@@ -133,6 +162,7 @@ def host_library(tmp_path_factory, source: str, launches: int,
     so = d / f"lib{stem}_host.so"
     proc = subprocess.run(
         [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-fno-fast-math",
+         "-fno-strict-aliasing",
          "-fPIC", "-shared", "-I", str(d), *map(str, files), "-o", str(so)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -302,6 +302,13 @@ def test_probe_kernels_equal_plain_on_the_card(cuda_device):
     x = torch.randn((3, 37, 41), device=dev)
     for o in perf_lab_dma.add1(x, 3, 8):
         assert torch.equal(o, x + 1)
+    # x one float past its allocation's 16-byte boundary, the outputs on
+    # theirs: the kernel moves it 4 bytes at a time
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    for ty in (8, 37):
+        for o in perf_lab_dma.add1(shifted, 2, ty):
+            assert torch.equal(o, x + 1)
     got, ref = (perf_lab_element.window(x, x, 8),
                 perf_lab_element.window_plain(x, x, 8))
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

@@ -12,7 +12,13 @@ version of ``mi_fieldcalc_tpu_torch/tools/`` on every point, bit for bit.
 Shapes: a ragged edge against each kernel's tile and a single row (P1's
 grid needs 3 rows and 3 columns, as B1's does, so its smallest case is
 3x3); P1 also on values spread over six decades, where its sum's order
-shows in the rounding.  The card checks the same (``chip_smoke.py`` phase 10).
+shows in the rounding.  P1 and P2 move whole 16-byte groups and do the
+unaligned head and tail of each run a value at a time, so their cases
+also take widths of 4k, 4k+1 and 4k+3, strips and pieces that end past
+the grid, and inputs and outputs at every 16-byte phase (views offset by
+1-3 floats or 1-15 bytes; P2 also with the input at another phase than
+its outputs, where it moves a float at a time).  The card checks the same
+(``chip_smoke.py`` phase 10).
 """
 
 import ctypes
@@ -70,52 +76,111 @@ def _mixed_scales(args, seed):
     return tuple(out)
 
 
+def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A copy of ``t`` whose data start ``k`` elements past a 16-byte (and
+    64-byte) boundary of its storage."""
+    buf = torch.empty(t.numel() + k + 64 // t.element_size(), dtype=t.dtype)
+    skip = (-buf.data_ptr() % 64) // t.element_size() + k
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _copy_on_host(host_lib, args, shape, all_defined, offsets=None):
+    """P1's C entry on ``args``, each input moved ``offsets[i]`` elements
+    off its 16-byte boundary, the outputs too where ``offsets`` has 16
+    entries; returns (values, masks) and holds them to the plain version
+    bit for bit."""
+    tk, q, u, v, ps, _, _, xmapr, ymapr, _ = args
+    nlev, ny, nx = shape
+    ins = [tk.values, q.values, u.values, v.values, tk.mask, q.mask, u.mask,
+           v.mask, ps.values, ps.mask, xmapr, ymapr]
+    values = torch.full((12,) + shape, float("nan"))
+    masks = torch.zeros((2 if all_defined else 9,) + shape, dtype=torch.bool)
+    outs = [values, masks]
+    if offsets is not None:
+        ins = [_offset(t, k) for t, k in zip(ins, offsets)]
+        if len(offsets) > 12:
+            outs = [_offset(t, k) for t, k in zip(outs, offsets[12:])]
+    ptrs = [_ptr(t) for t in ins]
+    if all_defined:
+        for i in (4, 5, 6, 7, 9):
+            ptrs[i] = None
+    assert host_lib.mf_probe_copy(
+        *ptrs, *(_ptr(t) for t in outs), nlev, ny, nx, int(all_defined), 0,
+        None) == 0
+    ref_v, ref_m = bench_copy.copy_probe_plain(tk, q, u, v, ps, xmapr, ymapr,
+                                               all_defined)
+    assert _same_bits(outs[0], ref_v)
+    assert torch.equal(outs[1], ref_m)
+    if not all_defined:
+        assert 0 < int(ref_m.sum()) < ref_m.numel()
+
+
 @pytest.mark.parametrize("all_defined", [False, True],
                          ids=["masked", "all_defined"])
 @pytest.mark.parametrize("shape,mixed", [
     ((1, 3, 3), False), ((2, 9, 33), False), ((3, 17, 70), False),
-    ((2, 9, 33), True)], ids=["3x3", "ragged", "two_tiles", "mixed_scales"])
+    ((2, 9, 33), True), ((2, 7, 37), False), ((3, 5, 39), False),
+    ((1, 4, 40), False)],
+    ids=["3x3", "ragged", "two_tiles", "mixed_scales", "width_4k1",
+         "width_4k3", "width_4k"])
 def test_copy_probe_host_equals_plain(host_lib, shape, mixed, all_defined):
     args = bench_copy.probe_inputs(*shape, seed=sum(shape),
                                    all_defined=all_defined, device="cpu")
     if mixed:
         args = _mixed_scales(args, sum(shape))
-    tk, q, u, v, ps, _, _, xmapr, ymapr, _ = args
-    nlev, ny, nx = shape
-    values = torch.empty((12,) + shape)
-    masks = torch.empty((2 if all_defined else 9,) + shape,
-                        dtype=torch.bool)
-
-    def m(f):
-        return None if all_defined else _ptr(f.mask)
-
-    assert host_lib.mf_probe_copy(
-        _ptr(tk.values), _ptr(q.values), _ptr(u.values), _ptr(v.values),
-        m(tk), m(q), m(u), m(v), _ptr(ps.values), m(ps), _ptr(xmapr),
-        _ptr(ymapr), _ptr(values), _ptr(masks), nlev, ny, nx,
-        int(all_defined), 0, None) == 0
-    ref_v, ref_m = bench_copy.copy_probe_plain(tk, q, u, v, ps, xmapr, ymapr,
-                                               all_defined)
-    assert _same_bits(values, ref_v)
-    assert torch.equal(masks, ref_m)
-    if not all_defined:
-        assert 0 < int(ref_m.sum()) < ref_m.numel()
+    _copy_on_host(host_lib, args, shape, all_defined)
 
 
-@pytest.mark.parametrize("shape,ty,nbuf,threads", [
-    ((3, 37, 41), 8, 3, 256), ((2, 1, 41), 48, 2, 512),
-    ((3, 37, 41), 37, 1, 256), ((1, 5, 7), 2, 24, 256)],
-    ids=["ragged", "single_row", "flat", "24_buffers"])
-def test_add1_host_equals_plain(host_lib, shape, ty, nbuf, threads):
-    x = torch.as_tensor(np.random.default_rng(ty).normal(size=shape)
-                        .astype(np.float32))
-    outs = [torch.full_like(x, float("nan")) for _ in range(nbuf)]
+@pytest.mark.parametrize("all_defined", [False, True],
+                         ids=["masked", "all_defined"])
+@pytest.mark.parametrize("shape,seed,offsets", [
+    ((2, 7, 37), 12, (1, 2, 3, 0, 1, 5, 15, 9, 3, 7, 2, 1)),
+    ((3, 5, 39), 14, (3, 3, 3, 3, 11, 11, 11, 11, 2, 13, 1, 1, 2, 6)),
+    ((1, 3, 3), 2, (2, 0, 1, 3, 4, 8, 12, 0, 1, 2, 3, 0, 1, 15))],
+    ids=["inputs", "inputs_and_outputs", "3x3"])
+def test_copy_probe_host_at_every_phase(host_lib, shape, seed, offsets,
+                                        all_defined):
+    args = bench_copy.probe_inputs(*shape, seed=seed,
+                                   all_defined=all_defined, device="cpu")
+    _copy_on_host(host_lib, args, shape, all_defined, offsets)
+
+
+def _add1_on_host(host_lib, shape, ty, nbuf, threads, x_at=0, out_at=0):
+    """P2's C entry with x and every output ``x_at`` / ``out_at`` floats
+    off a 16-byte boundary, held to the plain version bit for bit."""
+    x = _offset(torch.as_tensor(np.random.default_rng(ty).normal(size=shape)
+                                .astype(np.float32)), x_at)
+    outs = [_offset(torch.full(shape, float("nan")), out_at)
+            for _ in range(nbuf)]
     ptrs = (ctypes.c_void_p * nbuf)(*(o.data_ptr() for o in outs))
     assert host_lib.mf_probe_add1(
         _ptr(x), ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)), nbuf, ty,
         threads, *shape, None) == 0
     for got, ref in zip(outs, perf_lab_dma.add1_plain(x, nbuf)):
         assert _same_bits(got, ref)
+
+
+# threads 32: spans of 512 floats, so that the small shapes take both the
+# cut of a long unit into pieces and the grouping of short units
+@pytest.mark.parametrize("shape,ty,nbuf,threads", [
+    ((3, 37, 41), 8, 3, 256), ((2, 1, 41), 48, 2, 512),
+    ((3, 37, 41), 37, 1, 256), ((1, 5, 7), 2, 24, 256),
+    ((2, 9, 40), 4, 2, 32), ((2, 9, 41), 4, 2, 32), ((2, 9, 43), 4, 2, 32),
+    ((3, 37, 41), 37, 2, 32), ((3, 37, 41), 1, 1, 32),
+    ((2, 5, 41), 9, 32, 32)],
+    ids=["ragged", "single_row", "flat", "24_buffers", "nx_4k", "nx_4k1",
+         "nx_4k3", "flat_pieces", "ty1_grouped", "ty_above_ny_32_buffers"])
+def test_add1_host_equals_plain(host_lib, shape, ty, nbuf, threads):
+    _add1_on_host(host_lib, shape, ty, nbuf, threads)
+
+
+@pytest.mark.parametrize("x_at,out_at", [
+    (1, 1), (2, 2), (3, 3), (1, 0), (0, 3), (2, 1)])
+@pytest.mark.parametrize("ty", [4, 37], ids=["grouped", "pieces"])
+def test_add1_host_at_every_phase(host_lib, ty, x_at, out_at):
+    _add1_on_host(host_lib, (3, 37, 41), ty, 2, 32, x_at, out_at)
 
 
 @pytest.mark.parametrize("shape,ty", [
@@ -156,6 +221,10 @@ def test_entries_refuse_what_the_kernels_do_not_take(host_lib):
     assert host_lib.mf_probe_copy(*([None] * 14), 1, 3, 3, 1, -1, None) != 0
     assert host_lib.mf_probe_copy(*([None] * 14), 1, 3, 3, 1, 232449,
                                   None) != 0
+    # a row too wide for a strip's shared buffers, on each route
+    for ad in (False, True):
+        assert host_lib.mf_probe_copy(*([None] * 14), 1, 3, 232448 // 4,
+                                      int(ad), 0, None) != 0
     assert host_lib.mf_probe_add1(_ptr(x), pp, 33, 8, 256, 1, 4, 4,
                                   None) != 0
     assert host_lib.mf_probe_add1(_ptr(x), pp, 1, 8, 16, 1, 4, 4, None) != 0
