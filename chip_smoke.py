@@ -65,13 +65,16 @@ Phases (any failure raises and exits non-zero):
    outputs) at a ragged shape, every case of its sweep and on an x one
    float off its 16-byte boundary, P3 (halo windows) at 32x256, a ragged
    and a single-row case and B1's shape, P4 (the solver constructs) at
-   64x256 and 719x929, each equal to its plain version bit for bit; then,
+   64x256, at 719x929, on one lane and on two 719x929 launches back to
+   back, each equal to its plain version bit for bit; then,
    with the probes' launch counts zeroed before and read after (each must
    be > 0): B1 against P1 in turns on phase 5's inputs, masked and
    all-defined (B1 first held to its plain version), B1's time over P1's
    and both against the bytes bound at the published 3.35 TB/s; P2's
    sweep in GB/s beside ``torch.add(x, 1)``, each one-buffer row over it;
-   P3 beside P2's one buffer; P4 against its operation count; and one
+   P3 beside P2's one buffer; P4 against its bytes, its operations by
+   branch of tanh_f32 (at the published rate and the issue rate) and its
+   chain floor (capped lanes launched alone), its bound the largest; and one
    masked ``run_derived_fields_np`` request under
    ``utils.profiling.trace``: the device's busy share of the request and
    B1 found in the trace by name (or, where the trace holds no device
@@ -217,15 +220,16 @@ warmed by 3 s of both launches, then 10 rounds in alternating order (A B,
 B A, ...) of 30 timed launches a case and checkout; the quartiles of each
 checkout's times and of its round medians, and each library's SASS counts.
 
-    python3 chip_smoke.py --probes-ab DIR_A DIR_B
+    python3 chip_smoke.py --probes-ab DIR_A DIR_B [DIR ...]
 
-is the same for P1 and P2 at 32x719x929 (the rounds and counts are one
-helper, ``ab_rounds``): P1 masked and all-defined at every cap of
-``bench_copy.CAPS`` (phase 5's inputs), P2 at ``PROBE_AB_ADD1``, and
-``torch.add(x, 1)`` in the same rounds; each checkout's best cap, P2 over
-``torch.add``, the probes' ptxas lines and every kernel's SASS counts
-(B1-B6 too) are logged.  B1 / P1 is phase 10's, where the two are timed in
-turns.
+is the same for the probes in two or more checkouts (the rounds and
+counts are one helper, ``ab_rounds``): P1 masked and all-defined at
+32x719x929 at every cap of ``bench_copy.CAPS`` (phase 5's inputs), P2 at
+``PROBE_AB_ADD1``, ``torch.add(x, 1)`` in the same rounds, and P4 at
+719x929, at 64x256 and on one capped lane alone; each checkout's best cap,
+P2 over ``torch.add``, each P4 case over the first checkout's in every
+round, the probes' ptxas lines and every kernel's SASS counts (B1-B6 too)
+are logged.  B1 / P1 is phase 10's, where the two are timed in turns.
 
 A line ``record: {...}`` holds every number measured.  The second-to-last
 line is a JSON object with the kernels' records, the last
@@ -2074,8 +2078,9 @@ def phase_probe_kernels(dev) -> dict:
     boundary (the outputs on theirs: 4-byte accesses) in a flat and a
     tiled case, and at 70000 one-row units of 1024 floats (more row blocks
     than a grid's y may hold); P3 at PROBE_WINDOW_CASES and B1's shape with each window
-    height; P4 at the tool's 64x256 and at 719x929.  Returns each probe's
-    largest absolute difference (0.0)."""
+    height; P4 at the tool's 64x256, at 719x929, on one lane and on two
+    719x929 launches back to back, all five launched before any is read.
+    Returns each probe's largest absolute difference (0.0)."""
     from mi_fieldcalc_tpu_torch.tools import (
         bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel)
     import torch
@@ -2122,28 +2127,78 @@ def phase_probe_kernels(dev) -> dict:
             perf_lab_element.window(x, y, ty),
             perf_lab_element.window_plain(x, y, ty), f"window ty={ty}"))
     del x, y
-    for shape in (probe_mincog_kernel.TOOL_SHAPE,
-                  probe_mincog_kernel.GRID_SHAPE):
-        c0, a, decay = probe_mincog_kernel.solver_inputs(shape, 0, dev)
+    m = probe_mincog_kernel
+    solver_cases = [m.solver_inputs(shape, seed, dev) for shape, seed in (
+        (m.TOOL_SHAPE, 0), (m.GRID_SHAPE, 0), ((1, 1), 0), (m.GRID_SHAPE, 1),
+        (m.GRID_SHAPE, 2))]
+    # the last two back to back: both launched before either is read
+    outs = [m.solver(*case) for case in solver_cases]
+    for out, case, label in zip(outs, solver_cases, (
+            "64x256", "719x929", "one lane", "719x929 back to back, first",
+            "719x929 back to back, second")):
         err["solver"] = max(err["solver"], _exact(
-            probe_mincog_kernel.solver(c0, a, decay),
-            probe_mincog_kernel.solver_plain(c0, a, decay),
-            f"solver {shape}"))
+            out, m.solver_plain(*case), f"solver {label}"))
+    del outs, solver_cases
     log("probe kernels == plain versions bit for bit: P1 at "
         f"{len(copy_shapes)} shapes x 2 routes, P2 at {len(cases)} cases, "
-        f"P3 at {len(PROBE_WINDOW_CASES) + 2}, P4 at 2; max abs err {err}")
+        f"P3 at {len(PROBE_WINDOW_CASES) + 2}, P4 at 64x256, 719x929, one "
+        f"lane and a back-to-back pair; max abs err {err}")
     return err
 
 
-def phase_probe_times(dev, smi: str, reps=10) -> dict:
+#: capped lanes of P4's 719x929 inputs each launched alone for its chain
+#: floor
+CHAIN_LANES = 8
+
+
+def solver_chain(dev, smi: str, reps: int) -> dict:
+    """P4's chain floor: :data:`CHAIN_LANES` lanes of the 719x929 inputs
+    that run to the 100-iteration cap, spread over the grid, each launched
+    alone (n = 1) and held to the plain version; ``ms`` the slowest
+    median.  Beside them a lane that freezes on its first iteration (c0 =
+    1, a = 20: tanh_f32 gives 1 beyond 9, so c_new = c) launched alone,
+    and the time an iteration adds, (slowest - that) / 99."""
+    import torch
+    from mi_fieldcalc_tpu_torch.tools import probe_mincog_kernel as m
+    c0, a, decay = m.solver_inputs(m.GRID_SHAPE, 0, dev)
+    c0, a = c0.flatten(), a.flatten()
+    trips, done = m.solver_trips(c0, a)
+    capped = torch.nonzero(~done).flatten()
+    pick = capped[torch.linspace(0, len(capped) - 1, CHAIN_LANES,
+                                 device=dev).long()].tolist()
+    lanes = [(c0[i:i + 1], a[i:i + 1]) for i in pick]
+    one = (torch.ones(1, device=dev), torch.full((1,), 20.0, device=dev))
+    assert int(m.solver_trips(*one)[0]) == 1
+    assert all(int(trips[i]) == m.MAX_ITER for i in pick)
+    times = []
+    for lc0, la in lanes + [one]:
+        _exact(m.solver(lc0, la, decay), m.solver_plain(lc0, la, decay),
+               f"solver lane c0={float(lc0)} a={float(la)}")
+        times.append(statistics.median(time_device_ms(
+            lambda: m.solver(lc0, la, decay), reps)))
+    ms, one_ms = max(times[:-1]), times[-1]
+    res = {"lanes": pick, "capped_ms": times[:-1], "ms": ms,
+           "one_trip_ms": one_ms,
+           "iteration_us": (ms - one_ms) / (m.MAX_ITER - 1) * 1e3}
+    log(f"[{smi}] P4 chain floor: {CHAIN_LANES} capped lanes alone "
+        f"{min(times[:-1]):.4f}-{ms:.4f} ms, a lane frozen at its first "
+        f"iteration {one_ms:.4f} ms: {res['iteration_us']:.4f} us an "
+        f"iteration of the slowest")
+    return res
+
+
+def phase_probe_times(dev, smi: str, f32_rate: float, reps=10) -> dict:
     """The measurement path: B1 against P1 in turns at 32x719x929 on
     phase 5's inputs, masked and all-defined; P2's sweep; P3 at the tool's
     shape and at B1's beside P2's one buffer; P4 at the tool's shape and
-    719x929 against its operation count.  Kernel times are the launch
-    alone (queued behind a busy wait), median of ``reps``; plain times
-    through CUDA events.  The probes' launch counts are zeroed before and
-    read after, and each must be > 0.  Bounds at the card's published
-    rates (``utils.profiling``)."""
+    719x929 against its bytes, its operations by branch of tanh_f32 (at
+    the published rate and at ``f32_rate``, the un-fused issue rate: the
+    kernel is built -fmad=false) and its chain floor
+    (:func:`solver_chain`), its bound the largest of the three.  Kernel
+    times are the launch alone (queued behind a busy wait), median of
+    ``reps``; plain times through CUDA events.  The probes' launch counts
+    are zeroed before and read after, and each must be > 0.  Bounds at the
+    card's published rates (``utils.profiling``)."""
     import torch
     from mi_fieldcalc_tpu_torch import staging
     from mi_fieldcalc_tpu_torch.ops import fused
@@ -2235,30 +2290,40 @@ def phase_probe_times(dev, smi: str, reps=10) -> dict:
             for k, v in b1s.items()))
     del x, y
 
-    # P4 against its operation count
-    res["solver"] = {}
-    for key, shape in (("tool", probe_mincog_kernel.TOOL_SHAPE),
-                       ("grid", probe_mincog_kernel.GRID_SHAPE)):
-        c0, a, decay = probe_mincog_kernel.solver_inputs(shape, 0, dev)
-        trips, done = probe_mincog_kernel.solver_trips(c0, a)
-        ops = probe_mincog_kernel.solver_ops(trips)
-        nb = 12 * c0.numel()
+    # P4 against its bytes, its operations by branch and its chain floor
+    m = probe_mincog_kernel
+    chain = solver_chain(dev, smi, reps)
+    res["solver"] = {"chain": chain}
+    for key, shape in (("tool", m.TOOL_SHAPE), ("grid", m.GRID_SHAPE)):
+        c0, a, decay = m.solver_inputs(shape, 0, dev)
+        trips, done = m.solver_trips(c0, a)
+        branches = m.solver_branches(c0, a)
+        ops = m.solver_ops(branches, c0.numel())
+        nb = 12 * c0.numel() + 4 * len(m.DECAY)
         ms = statistics.median(time_device_ms(
-            lambda: probe_mincog_kernel.solver(c0, a, decay), reps))
+            lambda: m.solver(c0, a, decay), reps))
         pms = statistics.median(time_ms(
-            lambda: probe_mincog_kernel.solver_plain(c0, a, decay), 3))
-        o_ms, b_ms = ops / peak * 1e3, nb / hbm * 1e3
+            lambda: m.solver_plain(c0, a, decay), 3))
+        floors = {"bytes": nb / hbm * 1e3, "operations": ops / peak * 1e3,
+                  "chain": chain["ms"]}
+        by = max(floors, key=floors.get)
         res["solver"][key] = {
-            "shape": list(shape), "ms": ms, "plain_ms": pms, "ops": ops, "bytes": nb,
+            "shape": list(shape), "ms": ms, "plain_ms": pms, "ops": ops,
+            "bytes": nb, "branches": branches,
             "unconverged": int((~done).sum()),
             "lane_iterations": int(trips.sum()),
-            "bound_ms": max(o_ms, b_ms),
-            "bound_by": "operations" if o_ms >= b_ms else "bytes"}
+            "bytes_ms": floors["bytes"], "ops_ms": floors["operations"],
+            "ops_issue_rate_ms": ops / f32_rate * 1e3,
+            "chain_ms": chain["ms"], "bound_ms": floors[by], "bound_by": by}
         log(f"[{smi}] P4 {shape}: {ms:.4f} ms (plain {pms:.3f} ms); "
-            f"{int(trips.sum())} lane-iterations, {int((~done).sum())} lanes "
-            f"unconverged at the cap; {ops:.3e} operations -> {o_ms:.4f} ms "
-            f"at {peak / 1e12:.0f} TFLOP/s, {nb / 1e6:.1f} MB -> "
-            f"{b_ms:.4f} ms")
+            f"{int(trips.sum())} lane-iterations {branches}, "
+            f"{int((~done).sum())} lanes at the cap; {ops:.3e} operations "
+            f"-> {floors['operations']:.4f} ms at {peak / 1e12:.0f} "
+            f"TFLOP/s, {ops / f32_rate * 1e3:.4f} ms at "
+            f"{f32_rate / 1e12:.2f}e12/s; {nb / 1e6:.1f} MB -> "
+            f"{floors['bytes']:.4f} ms; chain floor {chain['ms']:.4f} ms; "
+            f"bound {floors[by]:.4f} ms by {by} ({floors[by] / ms:.1%} of "
+            f"it)")
     res["launches"] = {k: w.launches for k, w in wrappers.items()}
     log(f"measurement path launches: {res['launches']}")
     if not all(res["launches"].values()):
@@ -4398,7 +4463,7 @@ def main() -> int:
                                     env["f32_rate"])
     log("== phase 10: measurement probes")
     probe_err = phase_probe_kernels(dev)
-    probes = phase_probe_times(dev, smi)
+    probes = phase_probe_times(dev, smi, env["f32_rate"])
     request_trace = phase_request_trace(dev, smi)
     log("== phase 11: the operator surface")
     goldens = phase_goldens(dev)
@@ -4655,6 +4720,9 @@ def main() -> int:
         "max_abs_err": probe_err["solver"],
         "ms": grid["ms"], "plain_ms": grid["plain_ms"],
         **bound(grid["bytes"], grid["ops"]),
+        "chain_floor_ms": grid["chain_ms"],
+        "bound_with_chain_ms": grid["bound_ms"],
+        "bound_with_chain_by": grid["bound_by"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -4741,7 +4809,7 @@ def ab_rounds(dirs, libs, cases: dict, run, rounds: int, reps: int,
                                "round_medians_ms": round_medians[label],
                                "rounds_faster_than_first": faster}
         log(f"{label}: " + "; ".join(
-            f"{'AB'[k]} {dirs[k]} median {q[k][1]:.4f} ms "
+            f"{chr(65 + k)} {dirs[k]} median {q[k][1]:.4f} ms "
             f"(quartiles {q[k][0]:.4f}-{q[k][2]:.4f}; round medians "
             f"{rq[k][0]:.4f}-{rq[k][2]:.4f})"
             + ("" if k == 0 else f", faster than {dirs[0]} in {faster[k]} "
@@ -4819,24 +4887,28 @@ PROBE_AB_ADD1 = ((48, 1, 256), (4, 1, 256), (48, 12, 256), ("ny", 1, 256))
 
 
 def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
-    """``--probes-ab DIR_A DIR_B``: P1 and P2 at 32x719x929 from the
-    packages of two checkouts, loaded side by side in this one process: P1
-    masked and all-defined (phase 5's inputs) at every cap of
-    ``bench_copy.CAPS``, P2 at :data:`PROBE_AB_ADD1`, and ``torch.add(x,
-    1)`` on the same x in the same rounds.  Each checkout's launches are
-    held to the plain versions bit for bit first; then :func:`ab_rounds`
-    times them in turns and logs every library's SASS counts (B1-B6 and
-    the probes).  Logs each checkout's best cap a route and P2 over
-    ``torch.add``.  B1 / P1 is phase 10's, which times the two in turns."""
+    """``--probes-ab DIR_A DIR_B [DIR ...]``: P1, P2 and P4 from the
+    packages of two or more checkouts, loaded side by side in this one
+    process: P1 masked and all-defined at 32x719x929 (phase 5's inputs) at
+    every cap of ``bench_copy.CAPS``, P2 at :data:`PROBE_AB_ADD1` and
+    ``torch.add(x, 1)`` on the same x in the same rounds, P4 at 719x929,
+    at the tool's 64x256 and on one capped lane alone.  Each checkout's
+    launches are held to the plain versions bit for bit first; then
+    :func:`ab_rounds` times them in turns and logs every library's SASS
+    counts (B1-B6 and the probes).  Logs each checkout's best cap a route,
+    P2 over ``torch.add``, and each P4 case's time in every round over the
+    first checkout's in that round.  B1 / P1 is phase 10's, which times
+    the two in turns."""
     import importlib
     import torch
-    if len(dirs) != 2 or not torch.cuda.is_available():
-        print("chip_smoke --probes-ab: needs two checkouts and a CUDA "
-              "device", file=sys.stderr)
+    if len(dirs) < 2 or not torch.cuda.is_available():
+        print("chip_smoke --probes-ab: needs two or more checkouts and a "
+              "CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from mi_fieldcalc_tpu_torch import staging
-    from mi_fieldcalc_tpu_torch.tools import bench_copy, perf_lab_dma
+    from mi_fieldcalc_tpu_torch.tools import (
+        bench_copy, perf_lab_dma, probe_mincog_kernel)
     dev = torch.device("cuda", 0)
     log(smi_line())
     pkgs = [checkout_package(d, f"ab_checkout_{k}")
@@ -4845,6 +4917,8 @@ def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
               for p in pkgs]
     dmas = [importlib.import_module(f"{p.__name__}.tools.perf_lab_dma")
             for p in pkgs]
+    solvers = [importlib.import_module(
+        f"{p.__name__}.tools.probe_mincog_kernel") for p in pkgs]
     libs = [str(importlib.import_module(f"{p.__name__}._build").build())
             for p in pkgs]
     staged = {}
@@ -4866,6 +4940,15 @@ def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
         cases[f"P2 ty={ty} nbuf={nbuf} threads={threads}"] = (
             "add1", nbuf, ty, threads)
     cases["torch.add(x, 1)"] = ("library",)
+    m = probe_mincog_kernel
+    grid = m.solver_inputs(m.GRID_SHAPE, 0, dev)
+    first = int(torch.nonzero(~m.solver_trips(*grid[:2])[1].flatten())[0])
+    solver_in = {
+        "P4 719x929": grid, "P4 64x256": m.solver_inputs(m.TOOL_SHAPE, 0, dev),
+        "P4 one capped lane": (grid[0].flatten()[first:first + 1],
+                               grid[1].flatten()[first:first + 1], grid[2])}
+    for label in solver_in:
+        cases[label] = ("solver",)
 
     def run(k, label):
         case = cases[label]
@@ -4875,6 +4958,8 @@ def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
                                         case[2])
         if case[0] == "add1":
             return dmas[k].add1(x, *case[1:])
+        if case[0] == "solver":
+            return solvers[k].solver(*solver_in[label])
         return torch.add(x, 1.0)
 
     for ad in (False, True):
@@ -4882,17 +4967,18 @@ def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
         ref = bench_copy.copy_probe_plain(*args[:5], *args[7:9], ad)
         for label, case in cases.items():
             if case[:2] == ("copy", ad):
-                for k in range(2):
+                for k in range(len(dirs)):
                     _exact(run(k, label), ref, f"{dirs[k]} {label}")
         del ref
     for label, case in cases.items():
-        if case[0] == "add1":
-            ref = perf_lab_dma.add1_plain(x, case[1])
-            for k in range(2):
+        if case[0] in ("add1", "solver"):
+            ref = (perf_lab_dma.add1_plain(x, case[1]) if case[0] == "add1"
+                   else m.solver_plain(*solver_in[label]))
+            for k in range(len(dirs)):
                 _exact(run(k, label), ref, f"{dirs[k]} {label}")
             del ref
     for d, lib in zip(dirs, libs):
-        for pattern in ("copy_kernel", "add1_kernel"):
+        for pattern in ("copy_kernel", "add1_kernel", "solver_kernel"):
             for line in ptxas_lines(lib, pattern):
                 log(f"{d}:   ptxas: {line}")
     res = ab_rounds(dirs, libs, cases, run, rounds, reps, warm_s)
@@ -4910,11 +4996,20 @@ def probes_ab(dirs, rounds=10, reps=30, warm_s=3.0) -> int:
         best["p2_over_torch_add"] = (med[add1_1][k]
                                      / med["torch.add(x, 1)"][k])
         res["summary"][d] = best
+        for label in solver_in:
+            ratios = [mine / ref for ref, mine in zip(
+                *(res["cases"][label]["round_medians_ms"][j]
+                  for j in (0, k)))]
+            best[label] = {"ms": med[label][k], "round_over_first": ratios}
         log(f"{d}: P1 masked {best['masked']['ms']:.4f} ms at cap "
             f"{best['masked']['cap']}, all-defined "
             f"{best['all_defined']['ms']:.4f} ms at cap "
             f"{best['all_defined']['cap']}; P2 {PROBE_AB_ADD1[0]} / torch.add "
-            f"{best['p2_over_torch_add']:.3f}")
+            f"{best['p2_over_torch_add']:.3f}; " + ", ".join(
+                f"{label} {best[label]['ms']:.4f} ms (over {dirs[0]} per "
+                f"round {min(best[label]['round_over_first']):.3f}-"
+                f"{max(best[label]['round_over_first']):.3f})"
+                for label in solver_in))
     log("probes-ab " + json.dumps(res))
     return 0
 

@@ -128,7 +128,7 @@ def load_library() -> ctypes.CDLL:
     lib.mf_probe_copy.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.mf_probe_add1.argtypes = [p, pp] + [i] * 6 + [p]
     lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.mf_probe_solver.argtypes = [p] * 4 + [i, p]
+    lib.mf_probe_solver.argtypes = [p] * 5 + [i, p]
     for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,
                lib.mf_alevel_suite, lib.mf_hlevel_suite,
                lib.mf_vessel_icing_mincog, lib.mf_vessel_icing_modstall,

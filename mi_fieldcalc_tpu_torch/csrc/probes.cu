@@ -17,15 +17,18 @@
 //                     windows of x staged through shared memory.
 //   P4 solver_kernel  replaces tools/probe_mincog_kernel.py:20 kernel
 //                     (pallas_call :62): the icing solvers' constructs, a
-//                     loop that ends when the block votes every lane done.
+//                     loop whose lanes stop on their own iterations; a
+//                     thread takes a new lane as soon as its lane stops.
 //
 // What bounds them: P1-P3 move bytes and compute almost nothing, so device
 // memory bounds them; P4 reads and writes 12 bytes a lane and runs up to
-// 100 tanh iterations on each, so operations bound it.
+// 100 dependent tanh iterations on each, so its slowest lane's chain and
+// the card's issue slots bound it (its section says how).
 //
-// Every phase of every kernel is a block-stride loop over the block's
-// work, so the host build of tests/cuda_host.py, which runs a block as one
-// thread, covers the whole grid.  Built with -fmad=false and without
+// Every phase of P1-P3 is a block-stride loop over the block's work, and
+// P4's threads pull lanes until none is left, so the host build of
+// tests/cuda_host.py, which runs a block as one thread, covers the whole
+// grid.  Built with -fmad=false and without
 // --use_fast_math (common.cuh): each add and multiply rounds on its own and
 // '/' is IEEE, as in the plain versions.
 
@@ -608,18 +611,56 @@ __global__ void __launch_bounds__(256) window_kernel(const WindowParams P) {
 
 // ---- P4: the solver constructs -------------------------------------------
 //
-// One lane a point, kLanes lanes a block.  Each lane iterates
-// c <- c0 * tanh(a / c) from c = 1 and freezes on the iteration that brings
-// |c_new - c| <= 1e-5 (keeping that c_new); the block stops when it votes
-// every lane frozen (__syncthreads_and) or after 100 iterations.  Then
-// sum_k decay[k] * c over the 5 entries in order, and NaN -> 0.  A lane's
-// result does not depend on how lanes are grouped into blocks: it freezes
-// on its own iteration and every lane runs until frozen or the cap
-// (probe_mincog_kernel.py:25-35).  tanh is common.cuh's tanh_f32.  The
-// lanes' state lives in shared memory, each lane touched only by the
-// thread that owns it.
+// Each lane iterates c <- c0 * tanh(a / c) from c = 1 and freezes on the
+// iteration that brings |c_new - c| <= 1e-5 (keeping that c_new), or stops
+// after its own 100th iteration; then sum_k decay[k] * c over the 5 entries
+// in order, and NaN -> 0.  tanh is common.cuh's tanh_f32, the quotient an
+// IEEE division.  A lane's result does not depend on how lanes are grouped
+// (probe_mincog_kernel.py:25-35), so the kernel schedules them freely.
+//
+// What bounds it: not its bytes (12 a lane) nor the operations its lanes
+// need, but the slowest lane's chain of 100 dependent iterations (the floor
+// at small sizes: no schedule beats it) and, at 719x929, issue slots: a
+// lane needs 15 iterations on average and 3% of lanes run to the cap, so a
+// block that waits for its slowest lane (the first design: 256 lanes a
+// block in shared memory, a block vote every iteration) runs ~85% of its
+// lane-iterations idle.
+//
+// The design: a grid of resident blocks; each thread keeps one lane's c0,
+// a, c and trip count in registers, with no shared memory and no barrier
+// in the loop.  When its lane freezes or reaches the cap, the thread writes
+// the lane's sum and takes the next lane from its warp's pool.  A warp's
+// pool starts as its own chunk of kChunk lanes; when the slots that need a
+// lane outnumber the pool, lane 0 claims the next chunk from a counter in
+// device memory with one atomicAdd (one claim per kChunk lanes: one
+// address takes only ~1e9 atomics a second, so a claim a lane or a claim
+// a warp for exactly its free slots was slower), and every slot takes its
+// lane by its rank among them (__ballot_sync, __popc).  A warp leaves when
+// its pool is past n and none of its slots holds a lane.
+//
+// Two choices set against the drain, measured (PERF.md, PR 14):
+// - kSolverBlocksPerSm.  When the counter runs out, a warp runs until its
+//   slowest lane in flight is done, and most warps hold a capped one then.
+//   The more slots, the fewer lanes each gets before that: at the
+//   occupancy limit (64 warps an SM) two thirds of the warp-iterations
+//   drained; 16 warps an SM still hide an iteration's latency.
+// - kRound.  Between refills a slot runs up to kRound iterations with no
+//   vote; a slot whose lane stops early idles for the rest of the round.
+//
+// The counter returns to zero inside the kernel: the last warp out resets
+// it and the count of warps out, so a call is one launch and launches in
+// turn on one stream each find zeros.  Two launches that share a workspace
+// must not run at once; the wrapper keeps one workspace a stream.
+//
+// The host build of tests/cuda_host.py runs a block as one thread, a warp
+// of one slot: it takes its pool and then claims chunks until the counter
+// is spent, so the blocks run one after the other cover every lane.
 
-constexpr int kLanes = 256;
+constexpr int kSolverThreads = 128;
+constexpr int kSolverBlocksPerSm = 4;
+constexpr int kRound = 8;
+constexpr unsigned kChunk = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kSolverMaxIter = 100;
 constexpr int kDecay = 5;
 constexpr float kSolverTol = 0x1.4f8b58p-17f;   // float32(1e-5)
@@ -629,42 +670,81 @@ struct SolverParams {
   const float* __restrict__ a;
   const float* __restrict__ decay;
   float* __restrict__ out;
-  int n;
+  // [0] chunks claimed beyond the warps' own, [1] warps out; zero between
+  // launches
+  unsigned* __restrict__ work;
+  unsigned n;
 };
 
-__global__ void __launch_bounds__(kLanes) solver_kernel(const SolverParams P) {
-  __shared__ float s_c0[kLanes], s_a[kLanes], s_c[kLanes];
-  __shared__ int s_done[kLanes];
-  const int nt = blockDim.x;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kLanes;
-  const int64_t left = P.n - base;
-  const int cnt = left < kLanes ? static_cast<int>(left) : kLanes;
-  for (int i = threadIdx.x; i < cnt; i += nt) {
-    s_c0[i] = __ldg(P.c0 + base + i);
-    s_a[i] = __ldg(P.a + base + i);
-    s_c[i] = 1.0f;
-    s_done[i] = 0;
-  }
-  for (int j = 0; j < kSolverMaxIter; ++j) {
-    int all_done = 1;
-    for (int i = threadIdx.x; i < cnt; i += nt) {
-      if (s_done[i]) continue;
-      const float c = s_c[i];
-      const float c_new = s_c0[i] * tanh_f32(s_a[i] / c);
-      s_c[i] = c_new;
-      if (fabsf(c_new - c) <= kSolverTol) {
-        s_done[i] = 1;
+__global__ void __launch_bounds__(kSolverThreads)
+    solver_kernel(const SolverParams P) {
+  float decay[kDecay];
+  for (int k = 0; k < kDecay; ++k) decay[k] = __ldg(P.decay + k);
+  const unsigned per_block = (blockDim.x + 31) / 32;
+  const unsigned warps = gridDim.x * per_block;
+  const unsigned slot = threadIdx.x & 31;
+  const unsigned below = (1u << slot) - 1u;
+  // the warp's pool of lanes not yet started, [next, end)
+  unsigned next = (blockIdx.x * per_block + threadIdx.x / 32) * kChunk;
+  unsigned end = next + kChunk;
+  bool live = false;
+  unsigned i = 0;
+  int trips = 0;
+  float c0 = 0.0f, a = 0.0f, c = 1.0f;
+  for (;;) {
+    const unsigned want = __ballot_sync(kFullWarp, !live);
+    if (want != 0 && next < P.n) {
+      const unsigned k = __popc(want), have = end - next;
+      unsigned base = 0;
+      if (k > have) {
+        if (slot == 0) base = (warps + atomicAdd(P.work, 1u)) * kChunk;
+        base = __shfl_sync(kFullWarp, base, 0);
+      }
+      if (!live) {
+        const unsigned r = __popc(want & below);
+        i = r < have ? next + r : base + (r - have);
+        if (i < P.n) {
+          c0 = __ldg(P.c0 + i);
+          a = __ldg(P.a + i);
+          c = 1.0f;
+          trips = 0;
+          live = true;
+        }
+      }
+      if (k > have) {
+        next = base + (k - have);
+        end = base + kChunk;
       } else {
-        all_done = 0;
+        next += k;
       }
     }
-    if (__syncthreads_and(all_done)) break;
+    if (!__any_sync(kFullWarp, live)) break;
+    if (live) {
+      // up to kRound iterations before the warp refills again
+      bool stop = false;
+      for (int j = 0; j < kRound && !stop; ++j) {
+        const float c_new = c0 * tanh_f32(a / c);
+        ++trips;
+        stop = fabsf(c_new - c) <= kSolverTol || trips == kSolverMaxIter;
+        c = c_new;
+      }
+      if (stop) {
+        float acc = 0.0f;
+        for (int k = 0; k < kDecay; ++k) acc = acc + decay[k] * c;
+        P.out[i] = acc != acc ? 0.0f : acc;
+        live = false;
+      }
+    }
   }
-  for (int i = threadIdx.x; i < cnt; i += nt) {
-    const float c = s_c[i];
-    float acc = 0.0f;
-    for (int k = 0; k < kDecay; ++k) acc = acc + __ldg(P.decay + k) * c;
-    P.out[base + i] = acc != acc ? 0.0f : acc;
+  if (slot == 0) {
+    // every claim of this warp before its count out; the last warp's reset
+    // after every other warp's claims
+    __threadfence();
+    if (atomicAdd(P.work + 1, 1u) == warps - 1) {
+      __threadfence();
+      P.work[0] = 0;
+      P.work[1] = 0;
+    }
   }
 }
 
@@ -756,13 +836,28 @@ int mf_probe_window(const float* x, const float* y, float* o, float* ow,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P4.  `decay` holds 5 device floats; c0, a and out n lanes.
+// P4.  `decay` holds 5 device floats; c0, a and out n lanes; `work` 2
+// device unsigned ints, zero before the first launch (the kernel leaves
+// them zero), used by one launch at a time.  As many blocks as the card
+// holds at once, or fewer where the lanes fill fewer.
 int mf_probe_solver(const float* c0, const float* a, const float* decay,
-                    float* out, int n, void* stream) {
+                    float* out, unsigned* work, int n, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const SolverParams P{c0, a, decay, out, n};
-  const int grid = (n + kLanes - 1) / kLanes;
-  solver_kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solver_kernel,
+                                                kSolverThreads, 0);
+  per_sm = per_sm < kSolverBlocksPerSm ? per_sm : kSolverBlocksPerSm;
+  const int64_t need = (static_cast<int64_t>(n) + kSolverThreads - 1) /
+                       kSolverThreads;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const int64_t grid = need < resident ? need : resident;
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const SolverParams P{c0, a, decay, out, work, static_cast<unsigned>(n)};
+  const dim3 blocks(static_cast<unsigned>(grid));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  solver_kernel<<<blocks, kSolverThreads, 0, s>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,10 @@ A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
 C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
 ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
 ``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``
-is a plain add, ``__int_as_float`` is a ``memcpy``, ``float4`` and
+is a plain add and ``__threadfence()`` does nothing, a warp is that one
+thread at lane 0 (``__ballot_sync(m, p)`` is ``p`` as bit 0,
+``__any_sync(m, p)`` is ``p``, ``__shfl_sync(m, v, src)`` is ``v``,
+``__popc`` counts bits), ``__int_as_float`` is a ``memcpy``, ``float4`` and
 ``uint4`` are 16-byte aligned structs, ``__stcs`` a plain store, the card
 has 3 SMs that hold one
 block each (``cudaDeviceGetAttribute``,
@@ -13,8 +16,10 @@ block each (``cudaDeviceGetAttribute``,
 ``<<<grid, block>>>`` launch becomes a host loop over ``blockIdx`` (z, y,
 then x) that runs each block as one thread (``blockDim`` = 1 in every
 dimension, ``gridDim`` the grid).  That is right
-for kernels whose every phase is a block-stride loop: one thread runs all
-of its block's work in turn.  With ``-ffp-contract=off`` every float
+for kernels whose every phase is a block-stride loop, where one thread runs
+all of its block's work in turn, and for kernels whose threads pull work
+from a counter until none is left, where the blocks, run one after the
+other, take every piece between them.  With ``-ffp-contract=off`` every float
 operation rounds on its own, as the card's ``-fmad=false`` build does, and
 with ``-fno-strict-aliasing`` a kernel may read its shared buffers through
 the types it stages them as (bytes as words, floats as ``float4``), so
@@ -56,6 +61,14 @@ template <class T> static inline T atomicAdd(T* p, T v) {
   const T old = *p;
   *p = old + v;
   return old;
+}
+static inline void __threadfence() {}
+// a warp of one thread, lane 0: its own vote, its own value
+static inline unsigned __ballot_sync(unsigned, int p) { return p != 0; }
+static inline int __any_sync(unsigned, int p) { return p != 0; }
+static inline int __popc(unsigned v) { return __builtin_popcount(v); }
+template <class T> static inline T __shfl_sync(unsigned, T v, int) {
+  return v;
 }
 struct cudaFuncAttributes {
   int numRegs;

@@ -39,6 +39,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from mi_fieldcalc_tpu_torch._libm import tanh_f32
 from mi_fieldcalc_tpu_torch.field import Field
 from mi_fieldcalc_tpu_torch.tools import (
     _lab, bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel,
@@ -137,6 +138,48 @@ def test_solver_lane_grouping_does_not_matter():
                                                         a[i:i + 8], decay)
                        for i in range(0, 64, 8)])
     assert torch.equal(whole, parts)
+
+
+def _branches_numpy(c0: np.ndarray, a: np.ndarray) -> tuple:
+    """The loop in numpy float32, every lane iterated until it freezes or
+    reaches the cap, its tanh from the port's ``tanh_f32``: the
+    lane-iterations with |a / c| below 0.625, above 9, and the rest (NaN
+    with them), and every lane's trips."""
+    m = probe_mincog_kernel
+    c = np.ones_like(c0)
+    live = np.ones(c0.shape, bool)
+    trips = np.zeros(c0.shape, np.int64)
+    counts = {"poly": 0, "exp": 0, "saturated": 0}
+    for _ in range(m.MAX_ITER):
+        x = a / c
+        ax = np.abs(x)
+        poly, sign = live & (ax < 0.625), live & (ax > 9.0)
+        counts["poly"] += int(poly.sum())
+        counts["saturated"] += int(sign.sum())
+        counts["exp"] += int((live & ~poly & ~sign).sum())
+        trips += live
+        c_new = c0 * tanh_f32(torch.from_numpy(x)).numpy()
+        frozen = np.abs(c_new - c) <= np.float32(1e-5)
+        c = np.where(live, c_new, c)
+        live &= ~frozen
+    return counts, trips
+
+
+def test_solver_branch_counts_match_a_numpy_loop():
+    c0, a, _ = probe_mincog_kernel.solver_inputs((16, 64), seed=5)
+    a[0, :4] = torch.tensor([float("nan"), -3.0, 200.0, 0.01])
+    c0[1, :2] = torch.tensor([float("nan"), 1.0])
+    a[1, 1] = 20.0
+    got = probe_mincog_kernel.solver_branches(c0, a)
+    ref, ref_trips = _branches_numpy(c0.numpy(), a.numpy())
+    trips, _ = probe_mincog_kernel.solver_trips(c0, a)
+    assert got == ref
+    assert np.array_equal(trips.numpy(), ref_trips)
+    assert sum(got.values()) == int(trips.sum())
+    assert all(v > 0 for v in got.values())
+    assert probe_mincog_kernel.solver_ops(got, c0.numel()) == (
+        15 * got["poly"] + 30 * got["exp"] + 3 * got["saturated"]
+        + 10 * c0.numel())
 
 
 def test_solver_maps_nan_to_zero():
@@ -312,6 +355,15 @@ def test_probe_kernels_equal_plain_on_the_card(cuda_device):
     got, ref = (perf_lab_element.window(x, x, 8),
                 perf_lab_element.window_plain(x, x, 8))
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    c0, a, decay = probe_mincog_kernel.solver_inputs((64, 256), 0, dev)
-    assert torch.equal(probe_mincog_kernel.solver(c0, a, decay),
-                       probe_mincog_kernel.solver_plain(c0, a, decay))
+    # the tool's shape, the serving grid and one lane, launched back to
+    # back on one stream before any is read (the kernel leaves its counter
+    # at zero for the next)
+    m = probe_mincog_kernel
+    cases = [m.solver_inputs(shape, 0, dev)
+             for shape in (m.TOOL_SHAPE, m.GRID_SHAPE, (1, 1))]
+    cases.append(m.solver_inputs(m.GRID_SHAPE, 1, dev))
+    n = m.solver.launches
+    outs = [m.solver(*case) for case in cases]
+    assert m.solver.launches == n + len(cases)
+    for out, case in zip(outs, cases):
+        assert torch.equal(out, m.solver_plain(*case))

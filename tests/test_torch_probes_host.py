@@ -4,8 +4,10 @@ versions, bit for bit.
 ``csrc/probes.cu`` (P1 ``mf_probe_copy``, P2 ``mf_probe_add1``, P3
 ``mf_probe_window``, P4 ``mf_probe_solver``, with ``csrc/common.cuh``) is
 compiled by g++ through the stand-in ``cuda_runtime.h`` of
-``cuda_host.py``, which runs each block as one thread: every phase of the
-four kernels is a block-stride loop, so one thread covers its block's work.
+``cuda_host.py``, which runs each block as one thread: every phase of
+P1-P3 is a block-stride loop, so one thread covers its block's work, and
+P4's threads take lanes from their warp's pool and a counter until none
+is left, so the blocks run in turn cover every lane.
 With ``-ffp-contract=off`` every float operation rounds on its own, as the
 card's ``-fmad=false`` build does, so each output is held to the plain
 version of ``mi_fieldcalc_tpu_torch/tools/`` on every point, bit for bit.
@@ -17,8 +19,11 @@ unaligned head and tail of each run a value at a time, so their cases
 also take widths of 4k, 4k+1 and 4k+3, strips and pieces that end past
 the grid, and inputs and outputs at every 16-byte phase (views offset by
 1-3 floats or 1-15 bytes; P2 also with the input at another phase than
-its outputs, where it moves a float at a time).  The card checks the same
-(``chip_smoke.py`` phase 10).
+its outputs, where it moves a float at a time).  P4 takes lane counts
+that are not multiples of a warp's chunk, far more lanes than the host
+grid's threads, inputs on which every lane runs to the cap, and two
+launches in turn on one workspace, which the kernel must leave at zero.
+The card checks the same (``chip_smoke.py`` phase 10).
 """
 
 import ctypes
@@ -43,7 +48,7 @@ def host_lib(tmp_path_factory):
     lib.mf_probe_copy.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.mf_probe_add1.argtypes = [p, ctypes.POINTER(p)] + [i] * 6 + [p]
     lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.mf_probe_solver.argtypes = [p] * 4 + [i, p]
+    lib.mf_probe_solver.argtypes = [p] * 5 + [i, p]
     return lib
 
 
@@ -201,16 +206,45 @@ def test_window_host_equals_plain(host_lib, shape, ty):
     assert _same_bits(ow, ref_ow)
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (3, 37), (64, 256)],
-                         ids=["one_lane", "ragged", "tool"])
-def test_solver_host_equals_plain(host_lib, shape):
-    c0, a, decay = probe_mincog_kernel.solver_inputs(shape, seed=0)
-    if shape == (3, 37):
-        a[0, :3] = torch.tensor([float("nan"), 0.0, -3.0])
-    out = torch.full_like(c0, float("nan"))
-    assert host_lib.mf_probe_solver(_ptr(c0), _ptr(a), _ptr(decay),
-                                    _ptr(out), c0.numel(), None) == 0
-    assert _same_bits(out, probe_mincog_kernel.solver_plain(c0, a, decay))
+def _never_freezing(shape):
+    """Inputs on which every lane runs to the cap: a < 0 sends c from one
+    sign to the other each iteration, and NaN stays NaN."""
+    c0, a, decay = probe_mincog_kernel.solver_inputs(shape, seed=3)
+    a = -a
+    a[0, :2] = float("nan")
+    c0[-1, -2:] = float("nan")
+    trips, done = probe_mincog_kernel.solver_trips(c0, a)
+    assert not done.any()
+    assert bool((trips == probe_mincog_kernel.MAX_ITER).all())
+    return c0, a, decay
+
+
+# the host card holds 3 blocks of one thread, and a warp's first chunk is
+# 32 lanes: n = 111 and 385 are not multiples of 32, 41000 lanes are far
+# more than the grid's threads (most come from claimed chunks); two
+# launches in turn share one workspace, which the kernel leaves at zero
+@pytest.mark.parametrize("shape,kind", [
+    ((1, 1), None), ((3, 37), "planted"), ((64, 256), None),
+    ((41, 1000), None), ((7, 45), "capped"), ((5, 77), "twice")],
+    ids=["one_lane", "ragged", "tool", "many_chunks", "all_capped",
+         "back_to_back"])
+def test_solver_host_equals_plain(host_lib, shape, kind):
+    if kind == "capped":
+        inputs = [_never_freezing(shape)]
+    else:
+        inputs = [probe_mincog_kernel.solver_inputs(shape, seed=s)
+                  for s in ((0, 1) if kind == "twice" else (0,))]
+    if kind == "planted":
+        inputs[0][1][0, :3] = torch.tensor([float("nan"), 0.0, -3.0])
+    work = torch.zeros(2, dtype=torch.int32)
+    for c0, a, decay in inputs:
+        out = torch.full_like(c0, float("nan"))
+        assert host_lib.mf_probe_solver(_ptr(c0), _ptr(a), _ptr(decay),
+                                        _ptr(out), _ptr(work), c0.numel(),
+                                        None) == 0
+        assert _same_bits(out, probe_mincog_kernel.solver_plain(c0, a,
+                                                                decay))
+        assert work.tolist() == [0, 0]
 
 
 def test_entries_refuse_what_the_kernels_do_not_take(host_lib):
@@ -229,4 +263,4 @@ def test_entries_refuse_what_the_kernels_do_not_take(host_lib):
                                   None) != 0
     assert host_lib.mf_probe_add1(_ptr(x), pp, 1, 8, 16, 1, 4, 4, None) != 0
     assert host_lib.mf_probe_window(*([None] * 4), 33, 1, 4, 4, None) != 0
-    assert host_lib.mf_probe_solver(*([None] * 4), 0, None) != 0
+    assert host_lib.mf_probe_solver(*([None] * 5), 0, None) != 0
