@@ -177,11 +177,30 @@ Phases (any failure raises and exits non-zero):
    launch (the kernels line lists B2 again, ``"path":
    "hlevel_to_plevel_fused (40 fields)"``); (b) the tour
    ``examples/forecast_products_torch.py`` on the card with every
-   kernel's count zeroed before and read after (B1 and B4 once each, no
-   other kernel), then on the CPU: every number it returns equal (floats
-   within RTOL); B1 as its sharded section launches it and B4 as its suite
-   does, bit for bit their plain versions and timed (the kernels line
-   lists both with ``"path": "forecast_products_torch"``).
+   kernel's count zeroed before and read after (B1 twice, in its sharded
+   section and its aligned ingest, B4 once, no other kernel), then on the
+   CPU: every number it returns equal (floats within RTOL); B1 as its
+   sharded section launches it and B4 as its suite does, bit for bit their
+   plain versions and timed (the kernels line lists both with ``"path":
+   "forecast_products_torch"``);
+17. the aligned ingest (``align=True``: the inputs re-gridded onto the
+   aligned product grid, 719x929 -> 720x1024, by the codec's resampling
+   decode): (a) two ``run_derived_fields_np`` requests at 32x719x929
+   (undefined lanes live, fully defined), ``run_hlevel_suite_np`` with
+   config 2's set, ``run_vessel_icing_np`` on phase 9's request 1 and 3
+   steps of ``stream_derived_fields_np``, every kernel's count zeroed
+   before and read after (B1 5, B4, B5 and B6 once each, no other
+   kernel), every product on 720x1024; each entry then on the CPU: the
+   stager's re-gridded input block byte for byte the card's, products
+   with the same sentinels and values within RTOL and 2e-6 of the field's
+   largest magnitude; each streamed step byte for byte the single call;
+   (b) B1 (both requests), B4, B5 and B6 on the aligned inputs bit for bit
+   their plain versions; B1 and P1 in turns on the masked request at
+   720x1024 and at 719x929, B4's launch alone at both, B5 and B6 at
+   720x1024, each beside its bound (the kernels line lists the four again
+   with ``"path": "... (align=True)"``); (c) the masked request split,
+   ragged and aligned in turns, and the codec's plain decode of the four
+   stacks against its resampling decode.
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -239,6 +258,7 @@ non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -4234,7 +4254,8 @@ def tour_kernels(tour, dev, hbm: float, peak: float, reps=10) -> dict:
 
 def run_tour(dev, smi: str, hbm: float, peak: float) -> dict:
     """Phase 16 (b): the tour on the card, with every kernel's count
-    zeroed before and read after (B1 and B4 once each, no other kernel),
+    zeroed before and read after (B1 twice, in its sharded section and its
+    aligned ingest, B4 once, no other kernel),
     then on the CPU in this run; every number it returns must agree."""
     import contextlib
     import io
@@ -4255,10 +4276,10 @@ def run_tour(dev, smi: str, hbm: float, peak: float) -> dict:
         for line in buf.getvalue().splitlines():
             log(f"  tour on {device}: {line}")
     want = {k: 0 for k in res["launches"]}
-    want.update(derived_fields_fused=1, hlevel_suite_fused=1)
+    want.update(derived_fields_fused=2, hlevel_suite_fused=1)
     if res["launches"] != want:
         raise AssertionError(f"tour launches {res['launches']}, expected "
-                             f"B1 and B4 once each")
+                             f"B1 twice (sections 3 and 8) and B4 once")
     same_numbers(res["cuda"], res["cpu"], "tour cuda vs cpu")
     if not res["cuda"]["sharded_agree"]:
         raise AssertionError("tour: sharded vorticity != single-device")
@@ -4285,6 +4306,365 @@ def phase_surface_end(dev, smi: str, hbm: float, peak: float,
     wall = time.perf_counter() - t0
     log(f"phase 16 took {wall:.1f} s")
     return {"interp_many": many, "tour": tour, "wall_s": wall}
+
+
+# ---------------------------------------------------------------- phase 17
+
+#: phase 17: the streamed steps of the aligned ingest
+ALIGNED_STEPS = 3
+
+
+def stager_block(stager) -> tuple:
+    """A copy of what ``stager``'s last decode left in its input block:
+    its layout, the value bytes and the mask bytes."""
+    oshape, nps, rest, nval = stager._layout
+    n = int(np.prod(oshape)) + nps
+    return (stager._layout, stager._vin[:nval].numpy().tobytes(),
+            stager._min[:n].numpy().tobytes())
+
+
+def close_to_cpu(got: dict, ref: dict, label: str) -> None:
+    """A card's sentinel dict against the CPU's: the same keys in order,
+    shapes and sentinel points, values within RTOL and 2e-6 of the
+    field's largest magnitude (:func:`api_mismatch`)."""
+    if list(got) != list(ref):
+        raise AssertionError(f"{label}: keys {list(got)} != {list(ref)}")
+    for name, r in ref.items():
+        why = api_mismatch(got[name], r, exact=False)
+        if why:
+            raise AssertionError(f"{label} {name}: {why}")
+
+
+def with_gap(arrays, rows, cols) -> list:
+    """``arrays`` with the patch ``rows`` x ``cols`` undefined on every
+    level (a satellite gap, or land under the sea fields).  The re-grid
+    renormalises a lone undefined point away (a target point is undefined
+    only where all four corners are), so a patch is what keeps undefined
+    lanes live on the aligned grid."""
+    out = []
+    for a in arrays:
+        a = a.copy()
+        a[..., rows, cols] = np.float32(1e35)
+        out.append(a)
+    return out
+
+
+def aligned_requests() -> dict:
+    """Phase 17's inputs on the headline grids: two pipeline requests (the
+    benchmark's undefined column and a gap of 4 columns in tk, then fully
+    defined), config 2's h-level set (2% undefined points and a gap in tk
+    and rh), phase 9's icing request 1 with land (a 60x120 patch) under
+    sst and wave, and the stream's steps (gapped and fully defined in
+    turn)."""
+    gap = (slice(None), slice(NX // 2, NX // 2 + 4))
+
+    def pipeline(seed, undefs):
+        args = make_inputs(NLEV, NY, NX, seed, undefs, "column")
+        return (*with_gap(args[:1], *gap), *args[1:]) if undefs else args
+
+    tk, q, rh, p, ps, al, bl = make_suite_inputs(*SUITE_SHAPE, 53, 0.02,
+                                                 plant=False)
+    icing = list(icing_requests()[0][1])
+    icing[1], icing[6] = with_gap((icing[1], icing[6]), slice(200, 260),
+                                  slice(300, 420))
+    return {
+        "pipeline": [("undef lanes live", pipeline(51, True)),
+                     ("fully defined", pipeline(52, False))],
+        "suite": (*with_gap((tk, q, rh), *gap), p, ps, al, bl),
+        "icing": icing,
+        "steps": [pipeline(55 + i, i % 2 == 0)
+                  for i in range(ALIGNED_STEPS)]}
+
+
+def aligned_entries(dev, smi: str, inp: dict) -> dict:
+    """Phase 17 (a): the four entries and the stream with ``align=True``
+    on the card, every kernel's count zeroed just before and read just
+    after (B1 once a request and a step, B4, B5 and B6 once, no other);
+    each entry then with ``device="cpu"``: the re-gridded input blocks
+    byte for byte the card's, the products on the aligned grid within
+    RTOL (sentinels equal); each streamed step byte for byte the single
+    call."""
+    import torch
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ingest import aligned_target
+    from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
+    tgt = aligned_target(NY, NX)
+    tk, q, rh, _, ps, al, bl = inp["suite"]
+    routes = [staging._decode_step(args, staging.HostStager(4), 1e35,
+                                   True)[1] for _, args in inp["pipeline"]]
+    routes.append(staging._suite_decode_step(
+        tk, q, rh, ps, al, bl, config2_reqs(fs), staging.HostStager(3),
+        1e35, True)[1])
+    if routes != [False, True, False]:
+        raise AssertionError(f"aligned requests routed all_defined "
+                             f"{routes}, expected [False, True, False]")
+    calls = [(label, 4, lambda d, a=args: staging.run_derived_fields_np(
+        *a, align=True, device=d)) for label, args in inp["pipeline"]]
+    calls += [("suite", 3, lambda d: staging.run_hlevel_suite_np(
+                   tk, q, rh, ps, al, bl, align=True, device=d, **CONFIG2)),
+              ("icing", 11, lambda d: staging.run_vessel_icing_np(
+                   *inp["icing"], *ICING_SCAL, alt=1, align=True,
+                   device=d))]
+    zero_launches()
+    t0 = time.perf_counter()
+    card, blocks = {}, {}
+    for label, k, call in calls:
+        card[label] = call(dev)
+        blocks[label] = stager_block(staging._stager_cache(
+            k, 1e35, dev.type == "cuda"))
+    streamed = list(staging.stream_derived_fields_np(
+        inp["steps"], align=True, device=dev))
+    torch.cuda.synchronize(dev)
+    launches = read_launches()
+    card_s = time.perf_counter() - t0
+    want = {k: 0 for k in launches}
+    want.update(derived_fields_fused=len(inp["pipeline"]) + ALIGNED_STEPS,
+                hlevel_suite_fused=1, vessel_icing_mincog_fused=1,
+                vessel_icing_modstall_fused=1)
+    log(f"aligned ingest: {len(calls)} requests and {ALIGNED_STEPS} "
+        f"streamed steps on the card in {card_s:.1f} s, launches {launches}")
+    if launches != want:
+        raise AssertionError(f"aligned ingest launches {launches}, "
+                             f"expected {want}")
+    for label, out in list(card.items()) + [
+            (f"step {i}", s) for i, s in enumerate(streamed)]:
+        bad = [k for k, a in out.items() if a.shape[-2:] != tgt]
+        if bad:
+            raise AssertionError(f"aligned {label}: {bad} not on {tgt}")
+    cpu_s = {}
+    for label, k, call in calls:
+        t0 = time.perf_counter()
+        ref = call("cpu")
+        cpu_s[label] = time.perf_counter() - t0
+        if stager_block(staging._stager_cache(k, 1e35, False)) \
+                != blocks[label]:
+            raise AssertionError(f"aligned {label}: the card's re-gridded "
+                                 f"inputs differ from the CPU's")
+        close_to_cpu(card[label], ref, f"aligned {label} cuda vs cpu")
+        undef = sum(int((a == np.float32(1e35)).sum()) for a in ref.values())
+        log(f"aligned {label}: inputs byte for byte, {len(ref)} products "
+            f"on {tgt} == the CPU's ({undef} undefined points; the CPU "
+            f"{cpu_s[label]:.1f} s)")
+    check_physics(card["undef lanes live"], NLEV, *tgt)
+    check_physics(card["fully defined"], NLEV, *tgt)
+    check_suite_physics(card["suite"], SUITE_SHAPE[0], *tgt)
+    check_icing_physics(card["icing"], *tgt)
+    for i, (args, got) in enumerate(zip(inp["steps"], streamed)):
+        identical_dicts(got, staging.run_derived_fields_np(
+            *args, align=True, device=dev), f"aligned step {i}")
+    log(f"[{smi}] aligned ingest: routes {routes}; the CPU references in "
+        f"{sum(cpu_s.values()):.1f} s; {ALIGNED_STEPS} streamed steps byte "
+        f"for byte the single call")
+    return {"launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+            "routes": routes, "grid": list(tgt)}
+
+
+def aligned_kernels(dev, smi: str, inp: dict, hbm: float, peak: float,
+                    copy_gbps: float, f32_rate: float, reps=10) -> dict:
+    """Phase 17 (b): B1, B4, B5 and B6 on the aligned inputs, each bit for
+    bit its plain version, then timed: B1 and P1 in turns at 32x720x1024
+    and at the ragged grid on the same request, B4's launch alone at both
+    grids, B5 and B6 at 720x1024 (their operations counted from the plain
+    versions' lane counts)."""
+    from mi_fieldcalc_tpu_torch import staging
+    from mi_fieldcalc_tpu_torch.ingest import aligned_target
+    from mi_fieldcalc_tpu_torch.ops import fused, fused_suite as fs
+    from mi_fieldcalc_tpu_torch.ops.icing import _number
+    from mi_fieldcalc_tpu_torch.tools import bench_copy
+    res = {}
+    for label, args in inp["pipeline"]:
+        host, ad = staging._decode_step(args, staging.HostStager(4), 1e35,
+                                        True)
+        staged = staging._upload_step(host, dev)
+        res.setdefault("b1_max_abs_err", 0.0)
+        errs = compare_stacked(
+            fused.derived_fields_fused(*staged, all_defined=ad),
+            fused.derived_fields_plain(*staged, all_defined=ad),
+            f"aligned B1 {label}")
+        res["b1_max_abs_err"] = max(res["b1_max_abs_err"],
+                                    *errs["max_abs"].values())
+        del staged, host
+    for (route, args), align in itertools.product(
+            (("masked", inp["pipeline"][0][1]),
+             ("all_defined", inp["pipeline"][1][1])), (False, True)):
+        host, ad = staging._decode_step(args, staging.HostStager(4), 1e35,
+                                        align)
+        staged = staging._upload_step(host, dev)
+        ny, nx = staged[0].values.shape[-2:]
+        r = bench_copy.b1_against_copy(staged, ad, rounds=3, reps=reps)
+        nb = bench_copy.copy_bytes(NLEV, ny, nx, ad)
+        r.update(grid=[ny, nx], bytes=nb, bound_ms=nb / hbm * 1e3,
+                 ops=OPS_B1_POINT * NLEV * ny * nx,
+                 plain_ms=statistics.median(time_ms(
+                     lambda: fused.derived_fields_plain(
+                         *staged, all_defined=ad), reps)))
+        res[f"b1_{'aligned' if align else 'ragged'}_{route}"] = r
+        log(f"[{smi}] B1 {route} at {NLEV}x{ny}x{nx}: {r['b1_ms']:.4f} ms, "
+            f"P1 {r['probe_ms']:.4f} ms ({r['probe_cap']}), B1 / P1 "
+            f"{r['b1_over_probe']:.3f}; bytes bound {r['bound_ms']:.4f} ms "
+            f"({nb / 1e9:.3f} GB): B1 at {r['bound_ms'] / r['b1_ms']:.1%}; "
+            f"plain {r['plain_ms']:.2f} ms")
+        del staged, host
+
+    tk, q, rh, _, ps, al, bl = inp["suite"]
+    reqs = config2_reqs(fs)
+    for align in (False, True):
+        host, ad = staging._suite_decode_step(
+            tk, q, rh, ps, al, bl, reqs, staging.HostStager(3), 1e35, align)
+        staged = staging._suite_upload_step(host, reqs, dev)
+        nlev, ny, nx = staged[0].values.shape
+        if align:
+            compare_suite_exact(fs.hlevel_suite_stacked(*staged, reqs, ad),
+                                fs.hlevel_suite_plain(*staged, reqs, ad),
+                                "aligned B4")
+        for _ in range(20):
+            fs._launch(True, *staged, reqs, ad)
+        nb = suite_bytes(3, len(reqs), len(reqs), nlev, ny, nx, True, ad)
+        r = {"grid": [ny, nx], "bytes": nb, "bound_ms": nb / hbm * 1e3,
+             "ops": OPS_SUITE_OUTPUT * len(reqs) * nlev * ny * nx,
+             "ms": statistics.median(time_device_ms(
+                 lambda: fs._launch(True, *staged, reqs, ad), reps)),
+             "plain_ms": statistics.median(time_ms(
+                 lambda: fs.hlevel_suite_plain(*staged, reqs, ad), reps))}
+        res["b4_aligned" if align else "b4_ragged"] = r
+        log(f"[{smi}] B4 (config 2, all_defined={ad}) at {nlev}x{ny}x{nx}: "
+            f"the launch "
+            f"alone {r['ms']:.4f} ms; bytes bound {r['bound_ms']:.4f} ms "
+            f"({nb / 1e9:.3f} GB): at {r['bound_ms'] / r['ms']:.1%}; plain "
+            f"{r['plain_ms']:.2f} ms")
+        del staged, host
+
+    number = _number(*ICING_SCAL[2:])
+    for align in (False, True):
+        stager = staging.HostStager(11, pin=True)
+        if align:
+            stager.decode_resample(*inp["icing"],
+                                   shape_to=aligned_target(*ICING_SHAPE))
+        else:
+            stager.decode(*inp["icing"])
+        fields = staging._icing_upload_step(stager, dev)
+        npts = fields[0].values.numel()
+        for name, (launch, plain, nplanes, nflags) in icing_runs(
+                fields, 1).items():
+            trips = {}
+            bad = ~same_bits(launch(), plain(trips))
+            if bool(bad.any()):
+                raise AssertionError(f"{name} (align={align}): "
+                                     f"{int(bad.sum())} points differ from "
+                                     f"the plain version")
+            for _ in range(20):
+                launch()
+            b = icing_bound(trips, number, npts, nplanes, nflags, copy_gbps,
+                            f32_rate, 1 if name == "mincog" else None)
+            r = {"grid": list(fields[0].values.shape), "bytes": b["bytes"],
+                 "ops": b["ops"], "trips": trips,
+                 "bound_ms": max(b["bytes"] / hbm, b["ops"] / peak) * 1e3,
+                 "ms": statistics.median(time_ms(launch, reps)),
+                 "plain_ms": statistics.median(time_ms(plain, 1,
+                                                       warmup=False))}
+            res[name if align else f"{name}_ragged"] = r
+            log(f"[{smi}] {name} at {r['grid'][0]}x{r['grid'][1]}, {number} "
+                f"heights: kernel {r['ms']:.4f} ms == plain "
+                f"({r['plain_ms']:.1f} ms); bound {r['bound_ms']:.4f} ms "
+                f"({b['ops']:.3e} operations, {b['bytes'] / 1e6:.1f} MB): at "
+                f"{r['bound_ms'] / r['ms']:.1%}")
+        del fields, stager
+    return res
+
+
+def aligned_splits(dev, smi: str, inp: dict, reps=3) -> dict:
+    """Phase 17 (c): one masked pipeline request split (decode, H2D,
+    kernel, D2H, encode; median of ``reps`` after the first), ragged and
+    aligned on the same inputs; the codec's plain decode of the four
+    stacks against its resampling decode into the same block, and the map
+    ratios' and fcoriolis's re-grid in numpy (medians of 5)."""
+    from mi_fieldcalc_tpu_torch import native, staging
+    from mi_fieldcalc_tpu_torch.ingest import (aligned_target,
+                                               resample_align, resample_maps)
+    args = inp["pipeline"][0][1]
+    res = {}
+    for align in (False, True):
+        stager = staging.HostStager(4, pin=True)
+        first, med = request_split(
+            reps, dev,
+            lambda: staging._decode_step(args, stager, 1e35, align),
+            lambda host: staging._upload_step(host, dev),
+            staging._compute,
+            lambda out: staging._fetch(out, stager),
+            lambda fetched: staging._encode_step(fetched, 1e35))
+        key = "aligned" if align else "ragged"
+        res[key] = {"first": first, **med}
+        log(f"[{smi}] request ({key}, masked) median of {reps}, ms: "
+            + " ".join(f"{k}={v:.2f}" for k, v in med.items()))
+    stacks = [np.ascontiguousarray(a) for a in args[:4]]
+    xm, ym, fc = args[7:]
+    tgt = aligned_target(NY, NX)
+    codec = {}
+    for key, shape, fn in (
+            ("decode_pad_batch", (NY, NX), lambda o, m: native.
+             decode_pad_batch(stacks, NY, NX, out=o, mask=m)),
+            ("decode_resample_batch", tgt, lambda o, m: native.
+             decode_resample_batch(stacks, *tgt, out=o, mask=m)),
+            ("maps_and_fcoriolis", tgt, lambda o, m: (
+                resample_maps(xm, ym, NY, NX, tgt),
+                resample_align(fc, shape_to=tgt, mask_aware=False)))):
+        o = np.empty((4, NLEV) + shape, np.float32)
+        m = np.empty(o.shape, np.uint8)
+        fn(o, m)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(o, m)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        codec[key] = statistics.median(ts)
+    stager = staging.HostStager(4, pin=True)
+    tk, q, u, v, ps, al, bl = args[:7]
+    for key, fn in (
+            ("stager_decode", lambda: stager.decode(
+                tk, q, u, v, ps=ps, rest=(al, bl, xm, ym, fc))),
+            ("stager_decode_resample", lambda: stager.decode_resample(
+                tk, q, u, v, shape_to=tgt, ps=ps,
+                rest=(al, bl, xm, ym, fc)))):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        codec[key] = statistics.median(ts)
+    res["codec_ms"] = codec
+    log(f"[{smi}] the stager's decode of the request: plain "
+        f"{codec['stager_decode']:.2f} ms, resampling "
+        f"{codec['stager_decode_resample']:.2f} ms (its maps and fcoriolis "
+        f"as given)")
+    log(f"[{smi}] the codec on the four stacks: plain decode "
+        f"{codec['decode_pad_batch']:.2f} ms, resampling decode onto {tgt} "
+        f"{codec['decode_resample_batch']:.2f} ms; the map ratios and "
+        f"fcoriolis re-gridded in numpy {codec['maps_and_fcoriolis']:.2f} "
+        f"ms (medians of 5)")
+    return res
+
+
+def phase_aligned(dev, smi: str, hbm: float, peak: float, copy_gbps: float,
+                  f32_rate: float) -> dict:
+    """Phase 17: the aligned ingest (``align=True``) through the four
+    entries and the stream, its kernels and its request split."""
+    t0 = time.perf_counter()
+    inp = aligned_requests()
+    res, walls = {}, {"inputs": time.perf_counter() - t0}
+    for key, fn in (
+            ("entries", lambda: aligned_entries(dev, smi, inp)),
+            ("kernels", lambda: aligned_kernels(dev, smi, inp, hbm, peak,
+                                                copy_gbps, f32_rate)),
+            ("splits", lambda: aligned_splits(dev, smi, inp))):
+        t = time.perf_counter()
+        res[key] = fn()
+        walls[key] = time.perf_counter() - t
+    res["wall_s"] = time.perf_counter() - t0
+    res["walls_s"] = walls
+    log(f"phase 17 took {res['wall_s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()))
+    return res
 
 
 #: --icing-times / --suite-times: the cases timed in each checkout, and
@@ -4483,6 +4863,11 @@ def main() -> int:
     surface_end = phase_surface_end(dev, smi, probes["hbm_bytes_per_s"],
                                     probes["f32_flops"],
                                     iso["times"]["interp_launch_ms"])
+    log("== phase 17: the aligned ingest (align=True) through the four "
+        "entries and the stream")
+    aligned = phase_aligned(dev, smi, probes["hbm_bytes_per_s"],
+                            probes["f32_flops"], times["copy_gbps"],
+                            env["f32_rate"])
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -4498,7 +4883,7 @@ def main() -> int:
         "surface": {"goldens": goldens, "number_args": number_args,
                     "configs": configs, "ensemble": ens}, "stream": stream,
         "api": api_res, "batch": batch_res, "sharded": sharded,
-        "surface_end": surface_end, "wall_s": wall}))
+        "surface_end": surface_end, "aligned": aligned, "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -4688,6 +5073,30 @@ def main() -> int:
         "plain_ms": api_res[key]["plain_ms"],
         **bound(api_res[key]["bytes"], api_res[key]["ops"]),
     } for wrapper, _, key in API_KERNELS.values()]
+    ak, al = aligned["kernels"], aligned["entries"]["launches"]
+    kernels += [{
+        "name": name,
+        "path": path + " (align=True)",
+        "route": "cuda",
+        "source": src + source,
+        "replaces": ref + replaces,
+        "launches": al[wrapper],
+        "max_abs_err": 0.0,
+        "ms": ak[key]["b1_ms" if key.startswith("b1") else "ms"],
+        "grid": ak[key]["grid"],
+        "plain_ms": ak[key]["plain_ms"],
+        **bound(ak[key]["bytes"], ak[key]["ops"]),
+    } for name, path, key, wrapper, source, replaces in (
+        ("derived_fields", "run_derived_fields_np, stream_derived_fields_np",
+         "b1_aligned_masked", "derived_fields_fused", "derived_fields.cu",
+         "fused.py:301"),
+        ("hlevel_suite", "run_hlevel_suite_np", "b4_aligned",
+         "hlevel_suite_fused", "level_suite.cu", "fused_suite.py:377"),
+        ("vessel_icing_mincog", "run_vessel_icing_np", "mincog",
+         "vessel_icing_mincog_fused", "vessel_icing.cu", "icing_fused.py:69"),
+        ("vessel_icing_modstall", "run_vessel_icing_np", "modstall",
+         "vessel_icing_modstall_fused", "vessel_icing.cu",
+         "icing_fused.py:186"))]
     grid = probes["solver"]["grid"]
     p1 = probes["copy_masked"]
     kernels += [{

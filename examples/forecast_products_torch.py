@@ -9,10 +9,9 @@ The counterpart of ``examples/forecast_products.py``, section for section:
 4. the hybrid-level suite: a family of products in one kernel pass,
 5. a call storm recorded and run as one device program,
 6. forecast cycles with device-resident inputs,
-7. a subset fetch of a storm's outputs.
-
-Section 8 of the JAX tour (``align=True``, the re-grid onto the TPU's
-padded layout) is not ported; the tour prints one line saying so.
+7. a subset fetch of a storm's outputs,
+8. the aligned ingest: a ragged grid re-gridded onto the aligned product
+   grid (``align=True``).
 
     python examples/forecast_products_torch.py                # the card
     python examples/forecast_products_torch.py --device cpu   # CPU: the
@@ -202,9 +201,21 @@ def main(device="cuda", state=None) -> dict:
     say(f"subset fetch: tc mean {res['subset_tc_mean']:6.1f} C, "
         f"q850 mean {res['subset_q850_mean']:.2e} kg/kg")
 
-    # -- 8. aligned ingest -------------------------------------------------
-    say("aligned ingest: not ported (align=True re-grids onto the TPU's "
-        "padded layout)")
+    # -- 8. aligned ingest: the production-grid option --------------------
+    # a ragged producer grid re-gridded once at ingest onto the aligned
+    # product grid (mask-aware bilinear, map ratios rescaled); the product
+    # grid changes (e.g. 719x929 -> 720x1024)
+    from mi_fieldcalc_tpu_torch.staging import run_derived_fields_np
+    rag = np.s_[..., :95, :121]                 # a ragged producer grid
+    out_al = run_derived_fields_np(tk[rag], q[rag], u[rag], v[rag], ps[rag],
+                                   alevel, blevel, mapr[rag], mapr[rag],
+                                   fcor[rag], align=True, device=dev)
+    th = out_al["th"]
+    res["aligned_grid"] = list(th.shape[-2:])
+    res["aligned_th_mean"] = float(th[th < 1e34].mean())
+    res["aligned_thetae_undef"] = int((out_al["thetae"] >= 1e34).sum())
+    say(f"aligned ingest: product grid {th.shape[-2:]} "
+        f"(from {tk[rag].shape[-2:]})")
     return res
 
 

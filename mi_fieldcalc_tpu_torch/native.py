@@ -1,12 +1,13 @@
 """JAX-free ctypes binding of the native host codec ``native/fieldcodec.cc``.
 
-The port's counterpart of :mod:`mi_fieldcalc_tpu.native`: the three
-entries the serving path uses, :func:`decode_pad_batch`, :func:`decode_pad`
-and :func:`encode_trim_batch` (with ``mask_map``), and the rest of its
+The port's counterpart of :mod:`mi_fieldcalc_tpu.native`: the entries
+the serving path uses, :func:`decode_pad_batch`, :func:`decode_pad`,
+:func:`encode_trim_batch` (with ``mask_map``) and, for ``align=True``,
+:func:`decode_resample_batch` (``native.py:278-345``), and the rest of its
 public surface, :func:`available`, :func:`decode`, :func:`encode`,
 :func:`encode_trim`, :func:`count_defined` and :func:`defined_state_host`
-(``native.py:135-160, 528-590``).  The entries of the TPU's aligned,
-padded ingest (levpack, resample) are not ported.  It binds the same library
+(``native.py:135-160, 528-590``).  The LEV-packed entries (levpack) are
+not ported.  It binds the same library
 (ABI 6), built by ``native/build.sh`` with ``g++`` on first use into the
 port's git-ignored ``_build/`` directory.  Without a compiler every entry
 falls back to numpy with the same results, as the JAX binding does; the
@@ -29,8 +30,8 @@ import numpy as np
 from .field import UNDEF, ValuesDefined
 
 __all__ = ["available", "codec", "decode", "decode_pad", "decode_pad_batch",
-           "encode", "encode_trim", "encode_trim_batch", "count_defined",
-           "defined_state_host"]
+           "decode_resample_batch", "encode", "encode_trim",
+           "encode_trim_batch", "count_defined", "defined_state_host"]
 
 _ABI = 6
 _REPO = Path(__file__).resolve().parent.parent
@@ -83,6 +84,11 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.mf_decode_pad_batch.restype = None
     lib.mf_decode_pad_batch.argtypes = [
         ctypes.POINTER(_f32p), _i64, _i64, _i64, _i64, _i64, _i64,
+        ctypes.c_float, ctypes.c_float, _f32p, _u8p, _i64p]
+    lib.mf_decode_resample_batch.restype = None
+    lib.mf_decode_resample_batch.argtypes = [
+        ctypes.POINTER(_f32p), _i64, _i64, _i64, _i64, _i64, _i64,
+        _i64p, _i64p, _f32p, _i64p, _i64p, _f32p,
         ctypes.c_float, ctypes.c_float, _f32p, _u8p, _i64p]
     lib.mf_encode_trim_batch_map.restype = None
     lib.mf_encode_trim_batch_map.argtypes = [
@@ -232,6 +238,58 @@ def decode_pad_batch(arrays, ny_p: int, nx_p: int, undef: float = UNDEF,
     lib.mf_decode_pad_batch(srcs, k, lead, ny, nx, ny_p, nx_p, undef, 0.0,
                             out.ctypes.data_as(_f32p),
                             mask.ctypes.data_as(_u8p), counts)
+    return out, mask.view(np.bool_), list(counts)
+
+
+def decode_resample_batch(arrays, ny_t: int, nx_t: int, undef: float = UNDEF,
+                          fill: float = 0.0,
+                          out: Optional[np.ndarray] = None,
+                          mask: Optional[np.ndarray] = None,
+                          ) -> Tuple[np.ndarray, np.ndarray, list]:
+    """K same-shape sentinel stacks ``[..., ny, nx]`` decoded and
+    re-gridded (mask-aware bilinear, :func:`.ingest.resample_align`) onto
+    one ``[K, ..., ny_t, nx_t]`` (values, mask) block in one parallel pass;
+    ``fill`` at undefined points.  ``out``/``mask`` take preallocated
+    buffers; returns ``(values, bool mask, per-array defined counts of the
+    target grid)``.  The codec samples :func:`.ingest._axis_coords`'s
+    coordinates, as the numpy fallback does; its values may differ from
+    the fallback's in the last ulp (FP contraction)."""
+    from .ingest import _axis_coords
+    vs = [_f32c(a) for a in arrays]
+    shape = vs[0].shape
+    if any(a.shape != shape for a in vs):
+        raise ValueError("decode_resample_batch: arrays must share a shape")
+    ny, nx = shape[-2:]
+    k = len(vs)
+    oshape = (k,) + shape[:-2] + (ny_t, nx_t)
+    out = np.empty(oshape, np.float32) if out is None else out
+    mask = np.empty(oshape, np.uint8) if mask is None else mask
+    if out.shape != oshape or out.dtype != np.float32:
+        raise ValueError("decode_resample_batch: bad `out` buffer")
+    if mask.shape != oshape or mask.dtype not in (np.uint8, np.bool_):
+        raise ValueError("decode_resample_batch: bad `mask` buffer")
+    lib = _load()
+    if lib is None:
+        from .ingest import resample_align
+        counts = []
+        for i, a in enumerate(vs):
+            o, m, n = decode(resample_align(a, undef, shape_to=(ny_t, nx_t)),
+                             undef, fill)
+            out[i] = o
+            mask[i] = m
+            counts.append(n)
+        return out, mask.view(np.bool_), counts
+    y0, y1, wy = _axis_coords(ny, ny_t)
+    x0, x1, wx = _axis_coords(nx, nx_t)
+    lead = int(np.prod(shape[:-2], dtype=np.int64))
+    srcs = (_f32p * k)(*[a.ctypes.data_as(_f32p) for a in vs])
+    counts = (ctypes.c_int64 * k)()
+    lib.mf_decode_resample_batch(
+        srcs, k, lead, ny, nx, ny_t, nx_t,
+        y0.ctypes.data_as(_i64p), y1.ctypes.data_as(_i64p),
+        wy.ctypes.data_as(_f32p), x0.ctypes.data_as(_i64p),
+        x1.ctypes.data_as(_i64p), wx.ctypes.data_as(_f32p), undef, fill,
+        out.ctypes.data_as(_f32p), mask.ctypes.data_as(_u8p), counts)
     return out, mask.view(np.bool_), list(counts)
 
 

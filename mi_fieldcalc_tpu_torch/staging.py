@@ -38,13 +38,17 @@ one ``HostStager(k=11)`` decode of the shared surface fields, the
 products in request order (MINCOG and ModStall through their kernels)
 fetched plane by plane.
 
-The grid is the logical ``(ny, nx)``: the TPU's padded layout, aligned
-re-grid and LEV-packed masks are not ported.
+The grid is the logical ``(ny, nx)``, or with ``align=True`` (or
+``MF_STAGING_ALIGN=1``) the aligned product grid of :mod:`.ingest`, onto
+which the decode re-grids the stacks straight into the stager's block
+(:meth:`HostStager.decode_resample`).  The TPU's padded layout and
+LEV-packed masks are not ported.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import os
 import threading
 from typing import Dict, List, NamedTuple, Optional
 
@@ -53,6 +57,7 @@ import torch
 
 from . import native
 from .field import UNDEF, Field
+from .ingest import aligned_target, resample_align, resample_maps
 from .models.pipeline import DerivedFields, DerivedFieldsStacked
 from .ops._harness import not_ported
 from .ops.fused_suite import (_build_reqs, _check_coefficients, _consumes,
@@ -114,6 +119,18 @@ class HostStager:
         them; returns ``(values, uint8 mask)``, the K stacks, and sets
         :attr:`counts` (and :attr:`ps_count`).  Waits for the upload that
         last read the block."""
+        return self._fill(arrays, ps, rest, None)
+
+    def decode_resample(self, *arrays, shape_to, ps=None, rest=()):
+        """:meth:`decode` with the K stacks and ``ps`` re-gridded onto
+        ``shape_to`` on the way (``native.decode_resample_batch``, the
+        aligned ingest of :mod:`.ingest`), straight into the input block;
+        :attr:`counts` and :attr:`ps_count` are then the target grid's
+        defined points.  ``rest`` goes in as given, so it must already be
+        on ``shape_to``."""
+        return self._fill(arrays, ps, rest, tuple(shape_to))
+
+    def _fill(self, arrays, ps, rest, shape_to):
         if len(arrays) != self.k:
             raise ValueError(f"HostStager(k={self.k}) got {len(arrays)}")
         shape = np.shape(arrays[0])
@@ -121,10 +138,11 @@ class HostStager:
         if ps is not None and np.shape(ps) != (ny, nx):
             raise ValueError(f"ps has shape {np.shape(ps)}, expected "
                              f"({ny}, {nx})")
+        ny_t, nx_t = (ny, nx) if shape_to is None else shape_to
         rest = [np.asarray(a, np.float32) for a in rest]
-        oshape = (self.k,) + tuple(shape)
+        oshape = (self.k,) + tuple(shape[:-2]) + (ny_t, nx_t)
         n = int(np.prod(oshape))
-        nps = 0 if ps is None else ny * nx
+        nps = 0 if ps is None else ny_t * nx_t
         nval = n + nps + sum(a.size for a in rest)
         if self.uploaded is not None:
             self.uploaded.synchronize()
@@ -136,14 +154,20 @@ class HostStager:
                 or vin is not self._vin or vmask is not self._min):
             self.values = vals[:n].reshape(oshape)
             self.mask = masks[:n].reshape(oshape)
-        _, _, self.counts = native.decode_pad_batch(
-            arrays, ny, nx, self.undef, out=self.values, mask=self.mask)
+        if shape_to is None:
+            def codec(a, out, mask):
+                return native.decode_pad_batch(a, ny, nx, self.undef,
+                                               out=out, mask=mask)[2]
+        else:
+            def codec(a, out, mask):
+                return native.decode_resample_batch(
+                    a, ny_t, nx_t, self.undef, out=out, mask=mask)[2]
+        self.counts = codec(arrays, self.values, self.mask)
         self.ps_count = None
         if ps is not None:
-            _, _, (self.ps_count,) = native.decode_pad_batch(
-                [ps], ny, nx, self.undef,
-                out=vals[n:n + nps].reshape(1, ny, nx),
-                mask=masks[n:n + nps].reshape(1, ny, nx))
+            (self.ps_count,) = codec(
+                [ps], vals[n:n + nps].reshape(1, ny_t, nx_t),
+                masks[n:n + nps].reshape(1, ny_t, nx_t))
         off = n + nps
         for a in rest:
             vals[off:off + a.size] = a.reshape(-1)
@@ -206,6 +230,21 @@ def _stager_cache(k: int, undef: float, pin: bool = False) -> HostStager:
     if key not in cache:
         cache[key] = HostStager(k, undef, pin)
     return cache[key]
+
+
+def _align(align: Optional[bool]) -> bool:
+    """``align``; where it is None, the ``MF_STAGING_ALIGN`` environment
+    variable as the JAX entries read it (unset or ``0``: off)."""
+    if align is None:
+        return os.environ.get("MF_STAGING_ALIGN", "0") != "0"
+    return bool(align)
+
+
+def _regrid_target(ny: int, nx: int, align: bool) -> Optional[tuple]:
+    """The aligned product grid where ``align`` re-grids ``(ny, nx)``;
+    None where it is off or the grid is aligned already (a no-op)."""
+    tgt = aligned_target(ny, nx) if align else None
+    return None if tgt == (ny, nx) else tgt
 
 
 def _resolve_device(device, fn: str = "run_derived_fields_np"
@@ -313,13 +352,27 @@ def _encode_planes(fetched: Fetched, names, undef: float
     return dict(zip(names, planes))
 
 
-def _decode_step(args, stager: HostStager, undef: float):
+def _decode_step(args, stager: HostStager, undef: float,
+                 align: bool = False):
     """Decode one request on the host into ``stager``; returns
-    ``(Decoded, all_defined)``."""
+    ``(Decoded, all_defined)``.  With ``align`` a ragged grid is re-gridded
+    onto the aligned product grid as JAX's ``_stage_step`` does: the four
+    stacks and ``ps`` by the resampling decode, the map ratios by
+    :func:`.ingest.resample_maps`, ``fcoriolis`` by plain bilinear, the
+    coefficients as they are."""
     tk, q, u, v, ps, alevel, blevel, xmapr, ymapr, fcoriolis = args
     nlev, ny, nx = np.shape(tk)
-    stager.decode(tk, q, u, v, ps=ps,
-                  rest=(alevel, blevel, xmapr, ymapr, fcoriolis))
+    tgt = _regrid_target(ny, nx, align)
+    if tgt is None:
+        stager.decode(tk, q, u, v, ps=ps,
+                      rest=(alevel, blevel, xmapr, ymapr, fcoriolis))
+    else:
+        xmapr, ymapr = resample_maps(xmapr, ymapr, ny, nx, tgt)
+        fcoriolis = resample_align(fcoriolis, shape_to=tgt, mask_aware=False)
+        stager.decode_resample(tk, q, u, v, shape_to=tgt, ps=ps,
+                               rest=(alevel, blevel, xmapr, ymapr,
+                                     fcoriolis))
+        ny, nx = tgt
     # the decode counts prove (or disprove) full definedness: the gate
     # for the kernel's all-defined fast path (the reference's
     # inAllDefined shortcut, FieldCalculations.cc:100)
@@ -353,8 +406,16 @@ def _encode_step(fetched: Fetched, undef: float) -> Dict[str, np.ndarray]:
     return _encode_planes(fetched, DerivedFields._fields, undef)
 
 
+def _no_levpack(levpack: Optional[bool], fn: str) -> None:
+    if levpack:
+        raise not_ported(f"mi_fieldcalc_tpu.staging.{fn}",
+                         "LEV-packed masks (levpack=True)")
+
+
 def run_derived_fields_np(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
                           fcoriolis, undef: float = UNDEF,
+                          levpack: Optional[bool] = None,
+                          align: Optional[bool] = None,
                           device="cuda") -> Dict[str, np.ndarray]:
     """The 12-output derived-field pipeline from sentinel numpy to sentinel
     numpy: returns ``{name: [nlev, ny, nx]}`` for the 12
@@ -363,12 +424,21 @@ def run_derived_fields_np(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
     ``device="cuda"`` runs the CUDA kernel with page-locked, overlapped
     copies (and raises where CUDA is not available); ``device="cpu"`` runs
     the kernel's plain version.  Fully defined requests, as the decode
-    counts show, take the kernel's all-defined path."""
+    counts show, take the kernel's all-defined path.
+
+    ``align=True`` re-grids a ragged grid onto the aligned product grid at
+    ingest (:mod:`.ingest`: mask-aware bilinear over the same extent, map
+    ratios rescaled), and the products come back on that grid (719x929 ->
+    720x1024); an aligned grid is unchanged.  ``align=None`` reads the
+    ``MF_STAGING_ALIGN`` environment variable, as the JAX entry does.
+    ``levpack=True`` (LEV-packed masks on the TPU's link) is not ported;
+    ``None`` reads no environment variable."""
     dev = _resolve_device(device)
+    _no_levpack(levpack, "run_derived_fields_np")
     stager = _stager_cache(4, float(undef), dev.type == "cuda")
     host, all_defined = _decode_step(
         (tk, q, u, v, ps, alevel, blevel, xmapr, ymapr, fcoriolis), stager,
-        undef)
+        undef, _align(align))
     out = _compute(_upload_step(host, dev), all_defined)
     return _encode_step(_fetch(out, stager), undef)
 
@@ -384,18 +454,14 @@ def stream_derived_fields_np(steps, undef: float = UNDEF,
     While step i computes, one thread decodes step i+1 and another encodes
     step i-1, through a pair of :class:`HostStager` blocks used in turn: a
     block is rewritten only after the copy that reads it has finished.
-    ``levpack`` / ``align`` (the TPU link's packed masks and aligned
-    re-grid) are not ported; ``None`` reads no environment variable."""
+    ``align`` / ``levpack`` as in :func:`run_derived_fields_np`: the decode
+    thread re-grids each step into the block it owns."""
     dev = _resolve_device(device, "stream_derived_fields_np")
-    for flag, what in ((levpack, "LEV-packed masks (levpack=True)"),
-                       (align, "the aligned re-grid (align=True)")):
-        if flag:
-            raise not_ported(
-                "mi_fieldcalc_tpu.staging.stream_derived_fields_np", what)
-    return _stream(iter(steps), float(undef), dev)
+    _no_levpack(levpack, "stream_derived_fields_np")
+    return _stream(iter(steps), float(undef), dev, _align(align))
 
 
-def _stream(it, undef: float, dev: torch.device):
+def _stream(it, undef: float, dev: torch.device, align: bool = False):
     pin = dev.type == "cuda"
     stagers = (HostStager(4, undef, pin), HostStager(4, undef, pin))
     first = next(it, None)
@@ -403,14 +469,14 @@ def _stream(it, undef: float, dev: torch.device):
         return
     with cf.ThreadPoolExecutor(1) as ex_in, \
             cf.ThreadPoolExecutor(1) as ex_out:
-        fut = ex_in.submit(_decode_step, first, stagers[0], undef)
+        fut = ex_in.submit(_decode_step, first, stagers[0], undef, align)
         prev = None
         i = 0
         while fut is not None:
             host, all_defined = fut.result()
             nxt = next(it, None)
             fut = None if nxt is None else ex_in.submit(
-                _decode_step, nxt, stagers[(i + 1) % 2], undef)
+                _decode_step, nxt, stagers[(i + 1) % 2], undef, align)
             out = _compute(_upload_step(host, dev), all_defined)
             # the output block of stagers[i % 2] was last read by step
             # i-2's encode, which the previous iteration waited for
@@ -424,17 +490,24 @@ def _stream(it, undef: float, dev: torch.device):
 
 
 def _suite_decode_step(tk, q, rh, ps, alevel, blevel, reqs,
-                       stager: HostStager, undef: float):
+                       stager: HostStager, undef: float,
+                       align: bool = False):
     """Check the hybrid coefficients, then decode one suite request on
     the host: the consumed stacks (t, then q and rh where a request reads
-    them), ps and the coefficients into the stager.  Returns ``(Decoded,
-    all_defined)``."""
+    them), ps and the coefficients into the stager; with ``align`` the
+    stacks and ps re-gridded onto the aligned product grid on the way.
+    Returns ``(Decoded, all_defined)``."""
     coef = [np.asarray(a, np.float32) for a in (alevel, blevel)]
     _check_coefficients("hlevel_suite_fused", *coef)
     need_q, need_rh = _consumes(reqs)
     stacks = [tk] + ([q] if need_q else []) + ([rh] if need_rh else [])
     nlev, ny, nx = np.shape(tk)
-    stager.decode(*stacks, ps=ps, rest=coef)
+    tgt = _regrid_target(ny, nx, align)
+    if tgt is None:
+        stager.decode(*stacks, ps=ps, rest=coef)
+    else:
+        stager.decode_resample(*stacks, shape_to=tgt, ps=ps, rest=coef)
+        ny, nx = tgt
     all_defined = (stager.ps_count == ny * nx
                    and all(c == nlev * ny * nx for c in stager.counts))
     return Decoded(stager.values, stager.mask, stager), all_defined
@@ -490,13 +563,12 @@ def run_hlevel_suite_np(tk, q, rh, ps, alevel, blevel,
     overlapped copies (and raises where CUDA is not available);
     ``device="cpu"`` runs its plain version.  The coefficients are checked
     on the host before the upload.  Fully defined requests, as the decode
-    counts show, take the kernel's all-defined path.  ``align=True`` (the
-    TPU's aligned re-grid) is not ported; ``align=None`` reads no
-    environment variable."""
+    counts show, take the kernel's all-defined path.  ``align=True``
+    re-grids the stacks and ``ps`` onto the aligned product grid at ingest
+    (no map rescale: the suite is pointwise), and the products come back on
+    it; ``align=None`` reads ``MF_STAGING_ALIGN``, as in
+    :func:`run_derived_fields_np`."""
     dev = _resolve_device(device, "run_hlevel_suite_np")
-    if align:
-        raise not_ported("mi_fieldcalc_tpu.staging.run_hlevel_suite_np",
-                         "the aligned re-grid (align=True)")
     reqs = _build_reqs("run_hlevel_suite_np", temps, hums_q, hums_rh,
                        thes, ducts_q, ducts_rh)
     need_q, need_rh = _consumes(reqs)
@@ -509,7 +581,7 @@ def run_hlevel_suite_np(tk, q, rh, ps, alevel, blevel,
     stager = _stager_cache(1 + need_q + need_rh, float(undef),
                            dev.type == "cuda")
     host, all_defined = _suite_decode_step(tk, q, rh, ps, alevel, blevel,
-                                           reqs, stager, undef)
+                                           reqs, stager, undef, _align(align))
     out = _suite_compute(_suite_upload_step(host, reqs, dev), reqs,
                          all_defined)
     return _suite_encode_step(_suite_fetch(out, stager), reqs, undef)
@@ -574,22 +646,26 @@ def run_vessel_icing_np(sal, wave, x_wind, y_wind, airtemp, rh, sst, p,
 
     ``device="cuda"`` runs the MINCOG and ModStall kernels once each per
     request (and raises where CUDA is not available); ``device="cpu"``
-    runs their plain versions.  ``align=True`` (the TPU's aligned re-grid)
-    is not ported; ``align=None`` reads no environment variable."""
+    runs their plain versions.  ``align=True`` re-grids all 11 inputs onto
+    the aligned product grid in one resampling decode, and the products
+    come back on it; ``align=None`` reads ``MF_STAGING_ALIGN``, as in
+    :func:`run_derived_fields_np`."""
     dev = _resolve_device(device, "run_vessel_icing_np")
     for prod in products:
         if prod not in ICING_PRODUCTS:
             raise ValueError(f"run_vessel_icing_np: unknown product "
                              f"{prod!r} (known: {ICING_PRODUCTS})")
-    if align:
-        raise not_ported("mi_fieldcalc_tpu.staging.run_vessel_icing_np",
-                         "the aligned re-grid (align=True)")
     products = tuple(dict.fromkeys(products))
     if not products:
         return {}
+    arrays = (sal, wave, x_wind, y_wind, airtemp, rh, sst, p, pw, aice,
+              depth)
     stager = _stager_cache(11, float(undef), dev.type == "cuda")
-    stager.decode(sal, wave, x_wind, y_wind, airtemp, rh, sst, p, pw, aice,
-                  depth)
+    tgt = _regrid_target(*np.shape(sal)[-2:], _align(align))
+    if tgt is None:
+        stager.decode(*arrays)
+    else:
+        stager.decode_resample(*arrays, shape_to=tgt)
     fields = _icing_upload_step(stager, dev)
     outs = _icing_products(fields, vs, alpha, zmin, zmax, alt, products)
     return _encode_planes(_icing_fetch(outs, stager), products, undef)

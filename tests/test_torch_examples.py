@@ -6,9 +6,10 @@ The tour runs on the CPU (``main("cpu")``, the kernels' plain versions) at
 the JAX tour's own size, 10x96x128, and every number it returns is held
 to the JAX tour's same call on the same state: the JAX ``synthetic_state``,
 its drop-in api calls, the jitted ``derived_fields`` and
-``derived_fields_isobaric``, ``run_hlevel_suite_np`` and its ``batch()``
-storms.  Values within rtol 2e-5 (the port against jitted JAX), undefined
-counts and the suite's keys equal.  The sharded section has no JAX number
+``derived_fields_isobaric``, ``run_hlevel_suite_np``, its ``batch()``
+storms and ``run_derived_fields_np(align=True)``.  Values within rtol 2e-5
+(the port against jitted JAX), undefined counts, the suite's keys and the
+aligned product grid equal.  The sharded section has no JAX number
 here: it must agree with the single-device vorticity, on one process.
 
 Tolerances of the constructors: masks and values bit for bit, float32 and
@@ -53,13 +54,14 @@ def _defined(a) -> np.ndarray:
 
 
 def _jax_numbers(state) -> dict:
-    """The JAX tour's sections 1, 2 and 4-7 on ``state``, as the port's
+    """The JAX tour's sections 1, 2 and 4-8 on ``state``, as the port's
     ``main`` returns them."""
     import mi_fieldcalc_tpu.api as fc
     from mi_fieldcalc_tpu import from_sentinel
     from mi_fieldcalc_tpu.models import (derived_fields,
                                          derived_fields_isobaric)
-    from mi_fieldcalc_tpu.staging import run_hlevel_suite_np
+    from mi_fieldcalc_tpu.staging import (run_derived_fields_np,
+                                          run_hlevel_suite_np)
 
     tk, q, u, v, ps, alevel, blevel, mapr, fcor = state
     res = {}
@@ -105,25 +107,35 @@ def _jax_numbers(state) -> dict:
     cv, hv1 = fc.fetch(c1, h1)
     res["subset_tc_mean"] = float(_defined(cv).mean())
     res["subset_q850_mean"] = float(_defined(hv1).mean())
+    rag = np.s_[..., :95, :121]
+    out_al = run_derived_fields_np(tk[rag], q[rag], u[rag], v[rag],
+                                   ps[rag], alevel, blevel, mapr[rag],
+                                   mapr[rag], fcor[rag], align=True)
+    res["aligned_grid"] = list(out_al["th"].shape[-2:])
+    res["aligned_th_mean"] = float(_defined(out_al["th"]).mean())
+    res["aligned_thetae_undef"] = int((out_al["thetae"] >= 1e34).sum())
     return res
 
 
 def test_tour_matches_the_jax_tour(tours, capsys):
     """Every number the port's tour returns against the JAX tour's same
-    call, and the tour's printed lines (the JAX tour's 10 and the one that
-    names section 8 as not ported)."""
+    call, and the tour's printed lines (the JAX tour's 11: section 8 names
+    the aligned product grid)."""
     jtour, ttour = tours
     state = jtour.synthetic_state()
     for a, b in zip(state, ttour.synthetic_state()):
         np.testing.assert_array_equal(a, b)
     got = ttour.main("cpu", state)
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 11 and "not ported" in lines[-1]
+    assert len(lines) == 11
+    assert lines[-1] == ("aligned ingest: product grid (96, 128) "
+                         "(from (95, 121))")
     ref = _jax_numbers(state)
     assert got.pop("sharded_devices") == 1
     assert got.pop("sharded_agree") is True
     assert sorted(got) == sorted(ref)
-    for key in ("thetae_undef", "suite_keys"):
+    for key in ("thetae_undef", "suite_keys", "aligned_grid",
+                "aligned_thetae_undef"):
         assert got.pop(key) == ref.pop(key), key
     for key, want in ref.items():
         np.testing.assert_allclose(got[key], want, rtol=2e-5, atol=0,

@@ -35,6 +35,7 @@ import torch
 
 import icing_corner_cases as corners
 from conformance_cases import CASE_BY_NAME, case_inputs
+from test_torch_staging import presampled
 from mi_fieldcalc_tpu import _libm as jlibm
 from mi_fieldcalc_tpu.field import UNDEF, from_sentinel as j_from_sentinel
 from mi_fieldcalc_tpu.ops import icing as jicing
@@ -381,8 +382,15 @@ def test_run_vessel_icing_np_subset_and_checks():
     with pytest.raises(ValueError):
         staging.run_vessel_icing_np(*args, *SCAL, device="cpu",
                                     products=("nope",))
-    with pytest.raises(NotImplementedError):
-        staging.run_vessel_icing_np(*args, *SCAL, device="cpu", align=True)
+    aligned = staging.run_vessel_icing_np(*args, *SCAL, device="cpu",
+                                          align=True)
+    pre = staging.run_vessel_icing_np(
+        *(presampled(a, (16, 128)) for a in args), *SCAL, device="cpu",
+        align=False)
+    assert list(aligned) == list(pre) == list(staging.ICING_PRODUCTS)
+    for name, a in aligned.items():
+        assert a.shape == (16, 128)
+        assert a.tobytes() == pre[name].tobytes(), name
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             staging.run_vessel_icing_np(*args, *SCAL)   # device="cuda"

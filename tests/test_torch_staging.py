@@ -45,6 +45,27 @@ def _inputs(nlev=3, ny=24, nx=40, seed=0, undefs=True):
     return tk, q, u, v, ps, alevel, blevel, xmapr, ymapr, fcor
 
 
+def presampled(a, shape_to) -> np.ndarray:
+    """``a`` re-gridded onto ``shape_to`` by the port's resampling decode
+    and encoded back to sentinels: what an aligned request's stack is
+    after its decode."""
+    v, m, _ = native.decode_resample_batch([a], *shape_to)
+    return np.where(m[0], v[0], np.float32(UNDEF))
+
+
+def presampled_args(args, shape_to) -> tuple:
+    """The pipeline's 10 sentinel arguments re-gridded as ``align=True``
+    re-grids them (``_stage_step`` of the JAX package): the stacks and ps
+    by the resampling decode, the map ratios rescaled, fcoriolis by plain
+    bilinear, the coefficients as they are."""
+    from mi_fieldcalc_tpu_torch.ingest import resample_align, resample_maps
+    tk, q, u, v, ps, al, bl, xm, ym, fc = args
+    xm_t, ym_t = resample_maps(xm, ym, *tk.shape[-2:], shape_to)
+    return (*(presampled(a, shape_to) for a in (tk, q, u, v, ps)), al, bl,
+            xm_t, ym_t, resample_align(fc, shape_to=shape_to,
+                                       mask_aware=False))
+
+
 @pytest.mark.parametrize("undefs", [True, False])
 def test_run_derived_fields_np_matches_jax(undefs):
     args = _inputs(seed=3, undefs=undefs)

@@ -19,7 +19,7 @@ from mi_fieldcalc_tpu.field import UNDEF
 from mi_fieldcalc_tpu.staging import (
     stream_derived_fields_np as j_stream)
 from mi_fieldcalc_tpu_torch import staging
-from test_torch_staging import STENCIL, _inputs
+from test_torch_staging import STENCIL, _inputs, presampled_args
 
 torch.set_num_threads(1)
 
@@ -184,10 +184,18 @@ def test_decode_waits_for_the_upload_that_reads_the_block():
 
 
 def test_stream_rejects_unported_options_and_missing_cuda(monkeypatch):
-    steps = _steps(1)
-    for kw in (dict(levpack=True), dict(align=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            staging.stream_derived_fields_np(steps, **kw, **CPU)
+    """``levpack=True`` is not ported; ``align=True`` streams the aligned
+    products, each step the pre-resampled step's run unaligned; without
+    CUDA the default device raises."""
+    steps = _steps(2)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        staging.stream_derived_fields_np(steps, levpack=True, **CPU)
+    got = list(staging.stream_derived_fields_np(steps, align=True, **CPU))
+    ref = [staging.run_derived_fields_np(*presampled_args(s, (24, 128)),
+                                         align=False, **CPU) for s in steps]
+    assert len(got) == 2 and got[0]["th"].shape == (3, 24, 128)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        _same_bytes(g, r, f"aligned step {i}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         staging.stream_derived_fields_np(steps)      # raises before a step

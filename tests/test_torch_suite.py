@@ -39,6 +39,7 @@ from mi_fieldcalc_tpu_torch import staging
 from mi_fieldcalc_tpu_torch.constants import kappa
 from mi_fieldcalc_tpu_torch.field import Field, from_arrays
 from mi_fieldcalc_tpu_torch.ops import fused_suite, levels, thermo
+from test_torch_staging import presampled
 
 torch.set_num_threads(1)
 
@@ -437,7 +438,8 @@ def test_run_hlevel_suite_np_matches_jax(undefs):
 def test_run_hlevel_suite_np_routing_and_arguments():
     """Fully defined requests route to the all-defined path by the decode
     counts; only the consumed stacks are decoded; the stager is reused;
-    the aligned re-grid is not ported; q / rh may be None where unread."""
+    ``align=True`` gives the pre-resampled request's products; q / rh may be
+    None where unread."""
     tk, q, rh, ps, al, bl = _suite_np(seed=4, undefs=False)
     reqs = _reqs(CONFIG2)
     stager = staging.HostStager(3)
@@ -457,9 +459,16 @@ def test_run_hlevel_suite_np_routing_and_arguments():
     staging.run_hlevel_suite_np(tk, None, None, ps, al, bl, temps=(3,),
                                 device="cpu")
     assert stager1.values is buf
-    with pytest.raises(NotImplementedError, match="run_hlevel_suite_np"):
-        staging.run_hlevel_suite_np(tk, q, rh, ps, al, bl, temps=(3,),
-                                    align=True, device="cpu")
+    aligned = staging.run_hlevel_suite_np(tk, q, rh, ps, al, bl, temps=(3,),
+                                          hums_rh=(3,), align=True,
+                                          device="cpu")
+    pre = staging.run_hlevel_suite_np(
+        *(presampled(a, (16, 128)) for a in (tk, q, rh, ps)), al, bl,
+        temps=(3,), hums_rh=(3,), align=False, device="cpu")
+    assert list(aligned) == list(pre) == ["temp3", "hum_rh3"]
+    for name, a in aligned.items():
+        assert a.shape == (3, 16, 128)
+        assert a.tobytes() == pre[name].tobytes(), name
     with pytest.raises(ValueError, match="consumes rh"):
         staging.run_hlevel_suite_np(tk, q, None, ps, al, bl, hums_rh=(3,),
                                     device="cpu")
