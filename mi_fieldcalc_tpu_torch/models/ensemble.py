@@ -25,6 +25,7 @@ import torch
 from ..field import Field
 from ..ops import mean_value, probability, stddev_value
 from ..ops._harness import not_ported
+from ..utils.profiling import span
 from .pipeline import DerivedFields, DerivedFieldsStacked, derived_fields
 
 __all__ = ["EnsembleSummary", "ensemble_derived_summary"]
@@ -42,6 +43,7 @@ def _member(f: Field, m: int) -> Field:
     return Field(f.values[m], f.mask[m])
 
 
+@span("ensemble.member_fields")
 def ensemble_member_fields(tk: Field, q: Field, u: Field, v: Field,
                            ps: Field, alevel, blevel, xmapr, ymapr,
                            fcoriolis, fused: bool = False,
@@ -65,18 +67,22 @@ def ensemble_member_fields(tk: Field, q: Field, u: Field, v: Field,
             st = derived_fields_fused(*args, alevel, blevel, xmapr, ymapr,
                                       fcoriolis, stacked=True,
                                       all_defined=all_defined)
-            values[:, m] = st.values
-            for i in range(12):
-                masks[i, m] = DerivedFieldsStacked.mask_plane(
-                    st.masks, i, st.values[i])
+            with span("ensemble.member_stack"):
+                values[:, m] = st.values
+                for i in range(12):
+                    masks[i, m] = DerivedFieldsStacked.mask_plane(
+                        st.masks, i, st.values[i])
         else:
-            for i, f in enumerate(derived_fields(*args, alevel, blevel,
-                                                 xmapr, ymapr, fcoriolis)):
-                values[i, m] = f.values
-                masks[i, m] = f.mask
+            out = derived_fields(*args, alevel, blevel, xmapr, ymapr,
+                                 fcoriolis)
+            with span("ensemble.member_stack"):
+                for i, f in enumerate(out):
+                    values[i, m] = f.values
+                    masks[i, m] = f.mask
     return DerivedFields(*[Field(values[i], masks[i]) for i in range(12)])
 
 
+@span("ensemble.reduce")
 def ensemble_summary(out: DerivedFields,
                      wind_limit: float = 15.0) -> EnsembleSummary:
     """Mean and spread of all 12 member-stacked fields, the probability of
@@ -89,6 +95,7 @@ def ensemble_summary(out: DerivedFields,
         prob_t_freeze=probability(2, out.tadv, (0.0,)))
 
 
+@span("ensemble.summary", count_allocs=True)
 def ensemble_derived_summary(tk: Field, q: Field, u: Field, v: Field,
                              ps: Field, alevel, blevel, xmapr, ymapr,
                              fcoriolis, wind_limit: float = 15.0,

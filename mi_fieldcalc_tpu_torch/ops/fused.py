@@ -28,6 +28,7 @@ import operator
 
 from ..field import Field
 from ..models.pipeline import DerivedFieldsStacked, derived_fields
+from ..utils.profiling import span
 from ._harness import check_tensor, not_ported
 from .stencil import ShardCtx, fill_bounds, shard_context
 
@@ -138,9 +139,10 @@ def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
     :func:`derived_fields_plain`."""
     dev = tk.values.device
     if dev.type == "cpu":
-        out = derived_fields_plain(tk, q, u, v, ps, alevel, blevel, xmapr,
-                                   ymapr, fcoriolis, all_defined,
-                                   global_shape, grid_offsets, halo_rows)
+        with span("b1.kernel", dev):
+            out = derived_fields_plain(tk, q, u, v, ps, alevel, blevel,
+                                       xmapr, ymapr, fcoriolis, all_defined,
+                                       global_shape, grid_offsets, halo_rows)
     elif dev.type == "cuda":
         out = _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
                       all_defined, _placement(tk.values.shape, global_shape,
@@ -201,12 +203,13 @@ def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         derived_fields_fused.launches += 1
-        err = lib.mf_derived_fields(
-            ptr(tk.values), ptr(q.values), ptr(u.values), ptr(v.values),
-            mptr(tk), mptr(q), mptr(u), mptr(v), ptr(ps.values), mptr(ps),
-            ptr(alevel), ptr(blevel), ptr(xmapr), ptr(ymapr),
-            ptr(values), ptr(masks), nlev, ny, nx, *placement,
-            int(all_defined), ctypes.c_void_p(stream))
+        with span("b1.kernel", dev):
+            err = lib.mf_derived_fields(
+                ptr(tk.values), ptr(q.values), ptr(u.values), ptr(v.values),
+                mptr(tk), mptr(q), mptr(u), mptr(v), ptr(ps.values),
+                mptr(ps), ptr(alevel), ptr(blevel), ptr(xmapr), ptr(ymapr),
+                ptr(values), ptr(masks), nlev, ny, nx, *placement,
+                int(all_defined), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"derived_fields_fused: kernel launch failed: "
                            f"{lib.mf_error_string(err).decode()}")
