@@ -201,6 +201,16 @@ Phases (any failure raises and exits non-zero):
    with ``"path": "... (align=True)"``); (c) the masked request split,
    ragged and aligned in turns, and the codec's plain decode of the four
    stacks against its resampling decode.
+18. The ensemble reductions' kernel (``ops.ensemble_fused``,
+   ``csrc/ensemble_stats.cu``): against its plain version at one, 10, 31
+   and 51 members on an odd point count and at MEPS's 10 x 65 x 949 x 739,
+   in each mode (no probability, above 15, below 0), masks and
+   probabilities exact, means and spreads within 4 float32 ulps (the sums'
+   order); its time a field and a summary beside the plain version's and
+   the bytes bound.  Its 12 launches a summary (2 with the epilogue) are
+   counted on phase 11's main-path summary and on phase 15's sharded one.
+   ``python3 chip_smoke.py --ensemble-stats`` runs phases 1, 2 and 18
+   alone.
 
 Every kernel's record carries its bound (``bound_ms``): the larger of the
 bytes it must move over the card's published memory rate and the float32
@@ -2655,14 +2665,17 @@ def ensemble_inputs(dev):
 
 def phase_ensemble(dev, smi: str, reps=10) -> dict:
     """``ensemble_derived_summary(fused=True)`` at ENSEMBLE_SHAPE: B1
-    launched once per member (its count zeroed just before and read just
-    after), each member's stacked output bit for bit equal to
+    launched once per member and the reductions' kernel once per summary
+    field, 12 times, 2 of them with the probability's epilogue (each
+    count zeroed just before and read just after), each member's stacked
+    output bit for bit equal to
     ``derived_fields_plain``, the summary equal to the ``fused=False``
     route's (masks bitwise, values bit for bit); then its time, split into
     the member launches and the reductions, and its peak memory."""
     import torch
     from mi_fieldcalc_tpu_torch.field import Field
     from mi_fieldcalc_tpu_torch.models import ensemble
+    from mi_fieldcalc_tpu_torch.ops import ensemble_fused as ef
     from mi_fieldcalc_tpu_torch.ops import fused
     nmem = ENSEMBLE_SHAPE[0]
     t0 = time.perf_counter()
@@ -2673,15 +2686,23 @@ def phase_ensemble(dev, smi: str, reps=10) -> dict:
     base = torch.cuda.memory_allocated(dev)
 
     fused.derived_fields_fused.launches = 0
+    ef.ensemble_stats_fused.launches = 0
+    ef.ensemble_stats_fused.prob_launches = 0
     summ = ensemble.ensemble_derived_summary(*args, fused=True)
     torch.cuda.synchronize(dev)
     launches = fused.derived_fields_fused.launches
+    stats = {"stats_launches": ef.ensemble_stats_fused.launches,
+             "stats_prob_launches": ef.ensemble_stats_fused.prob_launches}
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"ensemble {'x'.join(map(str, ENSEMBLE_SHAPE))}: B1 launches "
-        f"{launches}; peak {peak / 2**30:.2f} GiB allocated (inputs "
-        f"{base / 2**30:.2f} GiB)")
+        f"{launches}; the reductions' kernel {stats['stats_launches']} "
+        f"launches, {stats['stats_prob_launches']} epilogues; peak "
+        f"{peak / 2**30:.2f} GiB allocated (inputs {base / 2**30:.2f} GiB)")
     if launches != nmem:
         raise AssertionError(f"expected {nmem} B1 launches, got {launches}")
+    if stats != {"stats_launches": 12, "stats_prob_launches": 2}:
+        raise AssertionError(f"expected 12 launches of the reductions' "
+                             f"kernel, 2 epilogues, got {stats}")
 
     def member(m):
         return [Field(f.values[m], f.mask[m]) for f in args[:5]] + args[5:]
@@ -2730,7 +2751,7 @@ def phase_ensemble(dev, smi: str, reps=10) -> dict:
     plain_total = time_ms(lambda: ensemble.ensemble_derived_summary(
         *args, fused=False), 3)
     res = {"card": smi, "shape": list(ENSEMBLE_SHAPE), "launches": launches,
-           "max_abs_err": 0.0, "every_point": every,
+           **stats, "max_abs_err": 0.0, "every_point": every,
            "inputs_s": t_in, "peak_bytes": peak, "input_bytes": base,
            "total_ms": statistics.median(total), "total_ms_all": total,
            "b1_launches_ms": statistics.median(b1), "b1_launches_ms_all": b1,
@@ -2740,8 +2761,10 @@ def phase_ensemble(dev, smi: str, reps=10) -> dict:
            "plain_total_ms": statistics.median(plain_total)}
     res["gather_ms"] = (res["total_ms"] - res["b1_launches_ms"]
                         - res["reductions_ms"])
-    # the reductions' bytes bound: the 12 member stacks (values and masks)
-    # read once, the 26 summary fields written once, at the published rate
+    # the reductions' bytes as benchmark/counts.reduce_bytes counts them
+    # (the benchmark's yardstick): the 12 member stacks (values and masks)
+    # read once, the 26 summary fields' values and masks written once, at
+    # the published rate; phase 18 bounds the kernel by its own bytes
     from mi_fieldcalc_tpu_torch.utils.profiling import device_hbm_gbps
     pts = int(np.prod(ENSEMBLE_SHAPE[1:]))
     res["reductions_bytes"] = 12 * nmem * pts * 5 + 26 * pts * 5
@@ -2756,6 +2779,183 @@ def phase_ensemble(dev, smi: str, reps=10) -> dict:
         f"{res['plain_total_ms']:.3f} ms (median of 3); peak "
         f"{peak / 2**30:.2f} GiB")
     return res
+
+
+# --------------------------------------------------------------- phase 18
+#: MEPS's member stack as the ens10 benchmark cell holds it: 10 members x
+#: 65 levels x 949 x 739, an odd point count (every other member plane is
+#: off a 16-byte boundary)
+STATS_SHAPE = (10, 65, 949, 739)
+#: the reductions' kernel against its plain version at an odd point count:
+#: one member and MEPS's 10 (the cap of 10), GEFS's 31 (the cap of 32) and
+#: ECMWF ENS's 51 (above every register cap)
+STATS_CASES = ((1, (3, 49, 73)), (10, (3, 49, 73)), (31, (3, 49, 73)),
+               (51, (3, 49, 73)))
+#: (limit, compute): no probability, wind above 15, advection below 0
+STATS_MODES = ((None, None), (15.0, 1), (0.0, 2))
+#: float32 operations a member and point (two adds, a subtract, a
+#: multiply, a compare), counted low from csrc/ensemble_stats.cu
+OPS_STATS_MEMBER = 5
+
+
+def stats_stack(dev, nmem: int, shape: tuple, seed: int):
+    """A member stack drawn on the card: values 10 +- 12 (both limits cut
+    them), ~1/37 of the points undefined (1e35 there), the first point
+    undefined in every member."""
+    import torch
+    from mi_fieldcalc_tpu_torch.field import Field
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    v = torch.randn((nmem,) + shape, generator=g, device=dev) * 12 + 10
+    m = torch.rand((nmem,) + shape, generator=g, device=dev) > 1 / 37
+    m.view(nmem, -1)[:, 0] = False
+    v.masked_fill_(~m, 1e35)
+    return Field(v, m)
+
+
+def stats_close(got, ref, f, label: str) -> dict:
+    """Masks and probabilities exact; means and spreads within 4 float32
+    ulps of the point's largest member magnitude (the spread also of the
+    mean): the kernel sums in member order, PyTorch's reduction in its
+    own.  Returns the largest gap in those ulps and the share of points
+    bit for bit."""
+    import torch
+    big = torch.where(f.mask, f.values.abs(),
+                      torch.zeros((), device=f.values.device)).amax(0)
+    ulp = torch.finfo(torch.float32).eps
+    out = {}
+    for kind, scale in (("mean", big), ("spread", big + ref.mean.values.abs())):
+        g, r = getattr(got, kind), getattr(ref, kind)
+        if not torch.equal(g.mask, r.mask):
+            raise AssertionError(f"{label} {kind}: masks differ")
+        gap = torch.where(g.values == r.values,
+                          torch.zeros((), device=g.values.device),
+                          (g.values - r.values).abs() / (ulp * scale))
+        gap = torch.where(g.values.isnan() & r.values.isnan(),
+                          torch.zeros((), device=g.values.device), gap)
+        worst = float(gap.max())
+        if not worst <= 4:
+            raise AssertionError(f"{label} {kind}: {worst:.2f} ulps")
+        out[f"{kind}_ulps"] = worst
+        out[f"{kind}_bitwise"] = float(same_bits(g.values, r.values).float()
+                                       .mean())
+    if ref.prob is not None:
+        if not (torch.equal(got.prob.values, ref.prob.values)
+                and torch.equal(got.prob.mask, ref.prob.mask)):
+            raise AssertionError(f"{label}: probabilities differ")
+    return out
+
+
+def phase_ensemble_stats(dev, smi: str, reps=10) -> dict:
+    """The ensemble reductions' kernel (``ops.ensemble_fused``): against
+    its plain version on STATS_CASES and at STATS_SHAPE in every mode;
+    its time a field without and with the probability, and a summary's
+    reductions (``models.ensemble.ensemble_summary`` on 12 fields), each
+    beside the plain version's (the reductions as they ran before the
+    kernel) and the bytes bound at the published rate and at this run's
+    copy rate.  Its launches a summary are counted by phase_ensemble, on
+    the main path's own run."""
+    import torch
+    from mi_fieldcalc_tpu_torch import _build
+    from mi_fieldcalc_tpu_torch.field import Field
+    from mi_fieldcalc_tpu_torch.models import ensemble
+    from mi_fieldcalc_tpu_torch.models.pipeline import DerivedFields
+    from mi_fieldcalc_tpu_torch.ops import ensemble_fused as ef
+    from mi_fieldcalc_tpu_torch.utils.profiling import device_hbm_gbps
+    for line in ptxas_lines(str(_build.build()), "stats_kernel") + \
+            ptxas_lines(str(_build.build()), "prob_kernel"):
+        log("  ptxas: " + line)
+    res = {"card": smi, "shape": list(STATS_SHAPE), "cases": {}}
+    for nmem, shape in STATS_CASES:
+        f = stats_stack(dev, nmem, shape, 300 + nmem)
+        for limit, compute in STATS_MODES:
+            label = f"stats {nmem}x{'x'.join(map(str, shape))} {compute}"
+            res["cases"][label] = stats_close(
+                ef.ensemble_stats_fused(f, limit, compute),
+                ef.ensemble_stats_plain(f, limit, compute), f, label)
+    log(f"ensemble stats: {len(res['cases'])} small cases == plain "
+        f"(masks, probabilities exact; means, spreads within 4 ulps)")
+    nmem, shape = STATS_SHAPE[0], STATS_SHAPE[1:]
+    f = stats_stack(dev, nmem, shape, 17)
+    for limit, compute in STATS_MODES:
+        label = f"stats {'x'.join(map(str, STATS_SHAPE))} {compute}"
+        res["cases"][label] = stats_close(
+            ef.ensemble_stats_fused(f, limit, compute),
+            ef.ensemble_stats_plain(f, limit, compute), f, label)
+        log(f"{label}: {res['cases'][label]}")
+        torch.cuda.empty_cache()
+    out = DerivedFields(*[Field(f.values, f.mask)] * 12)
+
+    def plain_summary():
+        for name, fld in zip(out._fields, out):
+            ef.ensemble_stats_plain(fld, *{"wspeed": (15.0, 1),
+                                          "tadv": (0.0, 2)}.get(name, ()))
+
+    med = statistics.median
+    times = {
+        "field_ms": time_ms(lambda: ef.ensemble_stats_fused(f), reps),
+        "prob_field_ms": time_ms(lambda: ef.ensemble_stats_fused(f, 15.0, 1),
+                                 reps),
+        "summary_ms": time_ms(lambda: ensemble.ensemble_summary(out), reps),
+        "plain_field_ms": time_ms(lambda: ef.ensemble_stats_plain(f), 3),
+        "plain_prob_field_ms": time_ms(
+            lambda: ef.ensemble_stats_plain(f, 15.0, 1), 3),
+        "plain_summary_ms": time_ms(plain_summary, 3)}
+    for k, v in times.items():
+        res[k], res[k + "_all"] = med(v), v
+    x = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    copy = time_ms(lambda: y.copy_(x), reps)
+    del x, y
+    res["copy_gbps"] = 2 * 2 ** 30 / med(copy) / 1e6
+    pts = int(np.prod(shape))
+    hbm = device_hbm_gbps(dev)
+    # the bytes the outputs need: the stack read once; the mean and the
+    # spread written once (4 + 4) with the one defined mask they share
+    # (1); with the probability its values (4) and a 0-dim mask
+    res["field_bytes"] = nmem * pts * 5 + pts * 9
+    res["prob_field_bytes"] = res["field_bytes"] + pts * 4
+    res["summary_bytes"] = 12 * res["field_bytes"] + 2 * pts * 4
+    # benchmark/counts.reduce_bytes, the benchmark's yardstick of the
+    # reductions (each of the 26 outputs a mask of its own), not the
+    # kernel's bound
+    res["summary_reduce_bytes"] = 12 * nmem * pts * 5 + 26 * pts * 5
+    res["field_ops"] = OPS_STATS_MEMBER * nmem * pts
+    for k in ("field", "prob_field", "summary"):
+        res[k + "_bound_ms"] = res[k + "_bytes"] / hbm * 1e3
+        res[k + "_copy_bound_ms"] = res[k + "_bytes"] / res["copy_gbps"] / 1e6
+        res[k + "_roofline_pct"] = 100 * res[k + "_bound_ms"] / res[k + "_ms"]
+    log(f"[{smi}] ensemble stats at {'x'.join(map(str, STATS_SHAPE))}, "
+        f"median of {reps}: a field {res['field_ms']:.3f} ms (bound "
+        f"{res['field_bound_ms']:.3f}, {res['field_roofline_pct']:.1f}%), "
+        f"with the probability {res['prob_field_ms']:.3f} ms (bound "
+        f"{res['prob_field_bound_ms']:.3f}); a summary's 12 "
+        f"{res['summary_ms']:.3f} ms (bound {res['summary_bound_ms']:.3f}, "
+        f"{res['summary_roofline_pct']:.1f}%; at the copy rate "
+        f"{res['copy_gbps']:.0f} GB/s {res['summary_copy_bound_ms']:.3f}); "
+        f"plain: a field {res['plain_field_ms']:.3f}, with the probability "
+        f"{res['plain_prob_field_ms']:.3f}, a summary "
+        f"{res['plain_summary_ms']:.3f} ms")
+    return res
+
+
+def ensemble_stats_only() -> int:
+    """Phases 1, 2 and 18 alone: ``python3 chip_smoke.py --ensemble-stats``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi, env = phase_env()
+    build = phase_build()
+    log("== phase 18: the ensemble reductions' kernel")
+    res = phase_ensemble_stats(dev, smi)
+    log("record: " + json.dumps({"env": env, "build": build,
+                                 "ensemble_stats": res}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 # --------------------------------------------------------------- phase 12
@@ -3948,7 +4148,8 @@ def sharded_path(dev, smi: str) -> dict:
     """(b) The sharded path at world size 1 under NCCL: the fused pipeline
     (overlap off and on), the isobaric path at phase 7's size, the
     ensemble at phase 11's and one stencil through ``run_sharded``, each
-    equal to its unsharded call, with B1 / B2 counted."""
+    equal to its unsharded call, with B1 / B2 and the reductions' kernel
+    (12 launches, 2 epilogues under the group's flag reduction) counted."""
     import torch
     import torch.distributed as dist
     from mi_fieldcalc_tpu_torch.field import from_sentinel
@@ -3956,6 +4157,7 @@ def sharded_path(dev, smi: str) -> dict:
                                                derived_fields_isobaric,
                                                ensemble_derived_summary)
     from mi_fieldcalc_tpu_torch.ops import fused, shapiro2_filter
+    from mi_fieldcalc_tpu_torch.ops import ensemble_fused as ef
     from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
     from mi_fieldcalc_tpu_torch.parallel import (distributed, grid_mesh,
                                                  run_sharded)
@@ -3971,10 +4173,15 @@ def sharded_path(dev, smi: str) -> dict:
         def counted(name, fn, want):
             fused.derived_fields_fused.launches = 0
             vf.hlevel_to_plevel_fused.launches = 0
+            ef.ensemble_stats_fused.launches = 0
+            ef.ensemble_stats_fused.prob_launches = 0
             out = fn()
             torch.cuda.synchronize(dev)
             got = {"derived_fields": fused.derived_fields_fused.launches,
-                   "vertical_interp": vf.hlevel_to_plevel_fused.launches}
+                   "vertical_interp": vf.hlevel_to_plevel_fused.launches,
+                   "ensemble_stats": ef.ensemble_stats_fused.launches,
+                   "ensemble_prob": ef.ensemble_stats_fused.prob_launches}
+            want = {"ensemble_stats": 0, "ensemble_prob": 0, **want}
             res["launches"][name] = got
             if got != want:
                 raise AssertionError(f"{name}: launches {got}, want {want}")
@@ -4011,7 +4218,8 @@ def sharded_path(dev, smi: str) -> dict:
         args = ensemble_inputs(dev)
         nmem = ENSEMBLE_SHAPE[0]
         got = counted("ensemble", lambda: ensemble_summary_sharded(
-            grid, *args), {"derived_fields": nmem, "vertical_interp": 0})
+            grid, *args), {"derived_fields": nmem, "vertical_interp": 0,
+                           "ensemble_stats": 12, "ensemble_prob": 2})
         same_defined(got, ensemble_derived_summary(*args, fused=True),
                      "sharded ensemble summary")
         del args, got
@@ -4868,6 +5076,8 @@ def main() -> int:
     aligned = phase_aligned(dev, smi, probes["hbm_bytes_per_s"],
                             probes["f32_flops"], times["copy_gbps"],
                             env["f32_rate"])
+    log("== phase 18: the ensemble reductions' kernel")
+    ens_stats = phase_ensemble_stats(dev, smi)
     wall = time.perf_counter() - t_start
     log(f"all phases passed in {wall:.1f} s")
 
@@ -4883,7 +5093,8 @@ def main() -> int:
         "surface": {"goldens": goldens, "number_args": number_args,
                     "configs": configs, "ensemble": ens}, "stream": stream,
         "api": api_res, "batch": batch_res, "sharded": sharded,
-        "surface_end": surface_end, "aligned": aligned, "wall_s": wall}))
+        "surface_end": surface_end, "aligned": aligned,
+        "ensemble_stats": ens_stats, "wall_s": wall}))
     src, ref = "mi_fieldcalc_tpu_torch/csrc/", "mi_fieldcalc_tpu/ops/"
     copy = times["copy_gbps"]
     hbm, peak = probes["hbm_bytes_per_s"], probes["f32_flops"]
@@ -5132,6 +5343,19 @@ def main() -> int:
         "chain_floor_ms": grid["chain_ms"],
         "bound_with_chain_ms": grid["bound_ms"],
         "bound_with_chain_by": grid["bound_by"],
+    }]
+    kernels += [{
+        "name": "ensemble_stats", "route": "cuda",
+        "source": src + "ensemble_stats.cu",
+        "replaces": "none (XLA: " + ref + "ensemble.py)",
+        # a summary's, on phase 11's main path: stats_kernel once a field,
+        # prob_kernel (the epilogue) for the 2 fields with a probability
+        "launches": ens["stats_launches"],
+        "prob_launches": ens["stats_prob_launches"],
+        "max_ulps": max(max(c["mean_ulps"], c["spread_ulps"])
+                        for c in ens_stats["cases"].values()),
+        "ms": ens_stats["field_ms"], "plain_ms": ens_stats["plain_field_ms"],
+        **bound(ens_stats["field_bytes"], ens_stats["field_ops"]),
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -5431,4 +5655,7 @@ if __name__ == "__main__":
         sys.exit(interp_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--probes-ab"]:
         sys.exit(probes_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ensemble-stats"]:
+        sys.path.insert(0, str(ROOT))
+        sys.exit(ensemble_stats_only())
     sys.exit(main())

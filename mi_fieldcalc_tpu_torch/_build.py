@@ -129,11 +129,15 @@ def load_library() -> ctypes.CDLL:
     lib.mf_probe_add1.argtypes = [p, pp] + [i] * 6 + [p]
     lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mf_probe_solver.argtypes = [p] * 5 + [i, p]
+    i64 = ctypes.c_int64
+    lib.mf_ensemble_stats.argtypes = [p] * 7 + [i, i64, i, f, p]
+    lib.mf_ensemble_prob.argtypes = [p] * 3 + [i, i64, p]
     for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,
                lib.mf_alevel_suite, lib.mf_hlevel_suite,
                lib.mf_vessel_icing_mincog, lib.mf_vessel_icing_modstall,
                lib.mf_vessel_icing_attributes, lib.mf_probe_copy,
-               lib.mf_probe_add1, lib.mf_probe_window, lib.mf_probe_solver):
+               lib.mf_probe_add1, lib.mf_probe_window, lib.mf_probe_solver,
+               lib.mf_ensemble_stats, lib.mf_ensemble_prob):
         fn.restype = i
     lib.mf_error_string.argtypes = [i]
     lib.mf_error_string.restype = ctypes.c_char_p

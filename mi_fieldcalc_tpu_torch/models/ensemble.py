@@ -13,7 +13,10 @@ pipeline kernel (:func:`..ops.fused.derived_fields_fused`), so the kernel
 runs ``nmem`` times; the JAX package ``vmap``s its ``pallas_call`` over the
 members instead.  Both routes write the members' fields into one stack and
 run the same reductions on it, so they agree bit for bit wherever the
-kernel agrees with its plain version.
+kernel agrees with its plain version.  The reductions of each field are one
+launch of the ensemble kernel on CUDA tensors
+(:func:`..ops.ensemble_fused.ensemble_stats_fused`), 12 a summary, and its
+plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ from typing import NamedTuple
 import torch
 
 from ..field import Field
-from ..ops import mean_value, probability, stddev_value
 from ..ops._harness import not_ported
+from ..ops.ensemble_fused import ensemble_stats_fused
 from ..utils.profiling import span
 from .pipeline import DerivedFields, DerivedFieldsStacked, derived_fields
 
@@ -87,12 +90,15 @@ def ensemble_summary(out: DerivedFields,
                      wind_limit: float = 15.0) -> EnsembleSummary:
     """Mean and spread of all 12 member-stacked fields, the probability of
     wind speed above ``wind_limit`` and of a cooling 1-hour temperature
-    advection."""
+    advection: one :func:`..ops.ensemble_fused.ensemble_stats_fused` a
+    field, the two probabilities with their fields' statistics."""
+    limits = {"wspeed": (float(wind_limit), 1), "tadv": (0.0, 2)}
+    stats = DerivedFields(*[ensemble_stats_fused(f, *limits.get(name, ()))
+                            for name, f in zip(out._fields, out)])
     return EnsembleSummary(
-        mean=DerivedFields(*[mean_value(f) for f in out]),
-        spread=DerivedFields(*[stddev_value(f) for f in out]),
-        prob_wind=probability(1, out.wspeed, (float(wind_limit),)),
-        prob_t_freeze=probability(2, out.tadv, (0.0,)))
+        mean=DerivedFields(*[s.mean for s in stats]),
+        spread=DerivedFields(*[s.spread for s in stats]),
+        prob_wind=stats.wspeed.prob, prob_t_freeze=stats.tadv.prob)
 
 
 @span("ensemble.summary", count_allocs=True)

@@ -4,7 +4,8 @@ A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
 C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
 ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
 ``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``
-is a plain add and ``__threadfence()`` does nothing, a warp is that one
+and ``atomicOr`` are a plain add and or, ``cudaMemsetAsync`` a ``memset``,
+and ``__threadfence()`` does nothing, a warp is that one
 thread at lane 0 (``__ballot_sync(m, p)`` is ``p`` as bit 0,
 ``__any_sync(m, p)`` is ``p``, ``__shfl_sync(m, v, src)`` is ``v``,
 ``__popc`` counts bits), ``__int_as_float`` is a ``memcpy``, ``float4`` and
@@ -61,6 +62,16 @@ template <class T> static inline T atomicAdd(T* p, T v) {
   const T old = *p;
   *p = old + v;
   return old;
+}
+template <class T> static inline T atomicOr(T* p, T v) {
+  const T old = *p;
+  *p = old | v;
+  return old;
+}
+static inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n,
+                                          cudaStream_t) {
+  memset(p, v, n);
+  return 0;
 }
 static inline void __threadfence() {}
 // a warp of one thread, lane 0: its own vote, its own value
