@@ -1,6 +1,7 @@
 """The ensemble summary: ``models.ensemble.ensemble_derived_summary`` with
-``fused=True`` (the pipeline kernel once per member, then the reductions
-in plain PyTorch) on member stacks that stay on the card.
+``fused=True`` on member stacks that stay on the card: the pipeline kernel
+once per member and the member stack, most of a summary's time, then the
+reductions' kernel (``csrc/ensemble_stats.cu``) once per field.
 
 A unit of work is one summary of all members at one lead time; lead times
 are used in turn.  The check holds the last summary of each lead time in

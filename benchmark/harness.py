@@ -9,7 +9,12 @@ names its driver, ``entries/<entry>.py``; each metric is read by
 ``metrics/<head>.py`` for the part of the name before its first dot (one
 reader serves ``device_idle_pct.ens`` and ``device_idle_pct.steps``).  A
 later cell, mix or metric is new files and entries; this file does not
-change.
+change.  A configuration is added as a new ``configs/<config>.json`` with
+its own ``cpu_test`` (the keys the CPU tests override and their small
+values, :mod:`benchmark.tests._small`; no run on the card reads it), plus
+its entries in ``BENCHMARK.json``.  A new cell joins an end-to-end time
+metric it reports, such as ``step_ms``, by adding its name to that
+metric's ``workloads``.
 
 An entry module defines ``Entry(config, traffic, seed, device)``, whose
 construction is the cell's set-up (inputs drawn on the device), with:

@@ -1,7 +1,9 @@
 """The benchmark's cells resolve to their files by name and run end to end
-on the CPU at a small size (the program's kernel wrappers run their plain
-versions there); ``BENCHMARK.json`` keeps to its format; nothing a run
-loads is JAX or the JAX package."""
+on the CPU at their configuration's ``cpu_test`` size (the program's kernel
+wrappers run their plain versions there); a configuration, mix, cell and
+metrics added as new files and entries alone run and are held to their
+control; ``BENCHMARK.json`` keeps to its format; nothing a run loads is JAX
+or the JAX package."""
 
 import json
 import os
@@ -53,13 +55,16 @@ def test_cell_runs_on_the_cpu_and_is_correct(cell, trace):
         assert all(v["value"] > 0 for v in out["metrics"].values())
 
 
-#: a configuration, a traffic mix, an end-to-end and two per-layer
-#: metrics that no cell of BENCHMARK.json has: new files and entries only
+#: a configuration, a traffic mix, a cell and two per-layer metrics that
+#: no cell of BENCHMARK.json has: new files and entries only.  The CPU runs
+#: the configuration at its own ``cpu_test``, never at its own size.
+NEW_CELL = "hybrid_l40.scattered"
 NEW_FILES = {
-    "configs/arome_l3.json": json.dumps(
-        {"name": "arome_l3", "members": 2, "levels": 3, "ny": 13, "nx": 19,
+    "configs/hybrid_l40.json": json.dumps(
+        {"name": "hybrid_l40", "levels": 40, "ny": 301, "nx": 257,
          "alevel": ["linspace", 0.0, 30.0], "blevel": ["linspace", 1.0, 0.7],
-         "xmapr": 4.0e-7, "ymapr": 3.6e-7, "fcoriolis": 1.2e-4}),
+         "xmapr": 4.0e-7, "ymapr": 3.6e-7, "fcoriolis": 1.2e-4,
+         "cpu_test": {"levels": 3, "ny": 13, "nx": 19}}),
     "traffic/scattered.json": json.dumps(
         {"entry": "pipeline_steps", "lead_times": 3, "in_flight": 1,
          "warmup": 3, "trace_seconds": 10, "undef": 0.05,
@@ -68,8 +73,6 @@ NEW_FILES = {
                     "u": ["normal", 0.0, 8.0], "v": ["normal", 0.0, 8.0],
                     "ps": ["normal", 990.0, 10.0]},
          "limits": {"step_gap": 1e-4}}),
-    "metrics/scattered_step_ms.py":
-        "from benchmark.metrics._common import per_unit_ms as read\n",
     "metrics/b1_ms.scattered.py":
         "from benchmark.metrics._common import span_ms\n\n\n"
         "def read(run):\n"
@@ -77,18 +80,15 @@ NEW_FILES = {
         "    return None if total is None else total / run.units\n",
 }
 NEW_ENTRIES = {
-    "configs": [{"name": "arome_l3", "source": "a test fixture",
-                 "file": "benchmark/configs/arome_l3.json", "reduced": [],
-                 "why": "three levels"}],
-    "workloads": [{"name": "arome_l3.scattered", "config": "arome_l3",
+    "configs": [{"name": "hybrid_l40", "source": "a test fixture",
+                 "file": "benchmark/configs/hybrid_l40.json", "reduced": [],
+                 "why": "forty levels"}],
+    "workloads": [{"name": NEW_CELL, "config": "hybrid_l40",
                    "traffic": "scattered", "chips": 1,
                    "why": "undefined points scattered over every field"}],
-    "end_to_end": [{"name": "scattered_step_ms", "unit": "ms",
-                    "better": "lower", "bound": 0.25, "source": "host_clock",
-                    "workloads": ["arome_l3.scattered"]}],
     "per_layer": [{"name": n, "unit": u, "better": "lower", "source": src,
-                   "layer": layer, "moves": "scattered_step_ms",
-                   "workloads": ["arome_l3.scattered"]}
+                   "layer": layer, "moves": "step_ms",
+                   "workloads": [NEW_CELL]}
                   for n, u, src, layer in (
                       ("b1_ms.scattered", "ms", "program_span",
                        "pipeline kernel"),
@@ -96,33 +96,98 @@ NEW_ENTRIES = {
                        "device"))]}
 
 
-@pytest.mark.parametrize("trace", [False, True])
-def test_a_cell_and_its_metrics_are_added_as_files_and_entries_alone(
-        tmp_path, monkeypatch, trace):
-    """A copy of the benchmark's data and readers, with new files and
-    entries added and no file edited, runs a new cell over the existing
-    pipeline driver, and reads its new metrics; ``device_idle_pct`` serves
-    the new cell's idle share by the part of its name before the dot."""
+def _written(root: Path) -> dict:
+    """Every file under ``root`` outside ``__pycache__``: its size and the
+    time it was last written."""
+    return {p: (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+@pytest.fixture
+def added(tmp_path, monkeypatch):
+    """A copy of the benchmark's configurations, mixes, readers and
+    reference with the new files added and no file edited, beside a copy
+    of ``BENCHMARK.json`` with the new entries and the new cell added to
+    ``step_ms``'s ``workloads``; the harness reads both.  Yields the
+    spec, and what the checkout's ``benchmark/`` held before."""
+    before = _written(ROOT / "benchmark")
     here = tmp_path / "benchmark"
-    for sub in ("configs", "traffic", "metrics"):
-        shutil.copytree(harness.HERE / sub, here / sub)
+    for sub in ("configs", "traffic", "metrics", "reference"):
+        shutil.copytree(harness.HERE / sub, here / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for rel, text in NEW_FILES.items():
         assert not (harness.HERE / rel).exists()
         (here / rel).write_text(text)
-    monkeypatch.setattr(harness, "HERE", here)
-    monkeypatch.setattr(harness, "ROOT", tmp_path)
     spec = {k: (v + NEW_ENTRIES[k] if k in NEW_ENTRIES else v)
             for k, v in SPEC.items()}
-    out = harness.run_cell(spec, "arome_l3.scattered", 2 ** 32 + 3, 0.05,
-                           trace, "cpu")
+    spec["end_to_end"] = [
+        dict(m, workloads=m["workloads"] + [NEW_CELL])
+        if m["name"] == "step_ms" else m for m in spec["end_to_end"]]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
+    monkeypatch.setattr(harness, "HERE", here)
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    yield harness.benchmark_spec(), before
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_cell_and_its_metrics_are_added_as_files_and_entries_alone(
+        added, trace):
+    """A new configuration, mix, cell and per-layer metrics run over the
+    existing pipeline driver at the configuration's own ``cpu_test``
+    (:func:`small`), the cell reports ``step_ms`` by its name in that
+    metric's ``workloads``, and ``device_idle_pct`` serves the new cell's
+    idle share by the part of its name before the dot; no file of the
+    checkout's ``benchmark/`` is written."""
+    spec, before = added
+    assert small(spec, NEW_CELL) == {"levels": 3, "ny": 13, "nx": 19}
+    out = harness.run_cell(spec, NEW_CELL, 2 ** 32 + 3, 0.05, trace, "cpu",
+                           overrides=small(spec, NEW_CELL))
     assert out["correct"] and out["check"]["step_gap"]["value"] == 0.0
     if trace:
         # the CPU has no device trace, so the idle share reads nothing
         assert set(out["metrics"]) == {"b1_ms.scattered"}
         assert harness.metric_file("device_idle_pct.scattered") == \
-            here / "metrics" / "device_idle_pct.py"
+            harness.HERE / "metrics" / "device_idle_pct.py"
     else:
-        assert set(out["metrics"]) == {"scattered_step_ms", "setup_s"}
+        assert set(out["metrics"]) == {"step_ms", "setup_s"}
+    assert _written(ROOT / "benchmark") == before
+
+
+def test_an_added_cell_is_held_to_its_control(added):
+    """:func:`benchmark.readings.readings` finds the new cell in the
+    copied ``BENCHMARK.json``: the program reads correct and the control
+    not correct on every seed."""
+    from benchmark.readings import readings
+    spec, before = added
+    lines = list(readings(NEW_CELL, [5], [6, 7, 8], 0.05, "cpu",
+                          small(spec, NEW_CELL)))
+    assert [x["kind"] for x in lines] == ["program"] + ["control"] * 3
+    for x in lines:
+        bad = [k for k, v in x["check"].items() if v > x["limits"][k]]
+        assert bool(bad) == (x["kind"] == "control"), x
+    assert _written(ROOT / "benchmark") == before
+
+
+@pytest.mark.parametrize("fault", ["missing", "unknown_key"])
+def test_a_configuration_without_a_sound_cpu_test_is_named(
+        tmp_path, monkeypatch, fault):
+    """:func:`small` names the configuration's file and the key."""
+    cell = CELLS[0]
+    name = {w["name"]: w["config"] for w in SPEC["workloads"]}[cell]
+    file = {c["name"]: c["file"] for c in SPEC["configs"]}[name]
+    config = harness.load_json(ROOT / file)
+    if fault == "missing":
+        del config["cpu_test"]
+        expect = f"{file} has no key 'cpu_test'"
+    else:
+        config["cpu_test"] = dict(config["cpu_test"], nz=3)
+        expect = f"{file}: 'cpu_test' overrides ['nz']"
+    (tmp_path / file).parent.mkdir(parents=True)
+    (tmp_path / file).write_text(json.dumps(config))
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    with pytest.raises(LookupError, match=re.escape(expect)):
+        small(SPEC, cell)
 
 
 def test_same_seed_same_inputs():
@@ -154,18 +219,21 @@ def _fresh(code: str) -> subprocess.CompletedProcess:
 
 def test_a_run_loads_no_jax_and_the_reference_none_of_the_port():
     code = (
-        "import sys, json\n"
+        "import importlib, json, sys\n"
         "from benchmark import harness\n"
-        "import benchmark.reference.pipeline, benchmark.reference.ensemble\n"
+        "mods = [p.stem for p in (harness.HERE / 'reference').glob('*.py')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module('benchmark.reference.' + m)\n"
         "ref = sorted({m.split('.')[0] for m in sys.modules})\n"
         "from benchmark.tests._small import SPEC, small\n"
         "for cell in [w['name'] for w in SPEC['workloads']]:\n"
         "    harness.run_cell(SPEC, cell, 3, 0.02, True, 'cpu',\n"
         "                     overrides=small(SPEC, cell))\n"
-        "print(json.dumps([ref, harness.forbidden_modules()]))\n")
+        "print(json.dumps([mods, ref, harness.forbidden_modules()]))\n")
     p = _fresh(code)
     assert p.returncode == 0, p.stderr[-3000:]
-    ref, bad = json.loads(p.stdout.splitlines()[-1])
+    mods, ref, bad = json.loads(p.stdout.splitlines()[-1])
+    assert mods
     assert "mi_fieldcalc_tpu_torch" not in ref
     assert "jax" not in ref and "mi_fieldcalc_tpu" not in ref
     assert bad == []
