@@ -24,6 +24,7 @@ from ..ops import (
     vectorabs,
 )
 from ..ops._harness import not_ported
+from ..utils.profiling import span
 
 __all__ = ["DerivedFields", "DerivedFieldsStacked", "STANDARD_PLEVELS",
            "RADIUS", "derived_fields", "derived_fields_isobaric",
@@ -135,6 +136,7 @@ def derived_fields(tk: Field, q: Field, u: Field, v: Field, ps: Field,
         tfp=thermal_front_parameter(tk, xm, ym))
 
 
+@span("isobaric.step", count_allocs=True)
 def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
                             ps: Field, alevel, blevel, xmapr, ymapr,
                             fcoriolis, plevels=STANDARD_PLEVELS,
@@ -183,9 +185,12 @@ def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
         ny, nx = tki.values.shape[-2:]
         ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
                     torch.ones((ny, nx), dtype=torch.bool, device=dev))
+        # staged from pageable memory before .to returns: no wait for the
+        # stream, so the host keeps enqueueing ahead of the card
+        plev = torch.tensor(plevels, dtype=torch.float32).to(
+            dev, non_blocking=True)
         return derived_fields_fused(
-            tki, qi, ui, vi, ps1,
-            torch.tensor(plevels, dtype=torch.float32, device=dev),
+            tki, qi, ui, vi, ps1, plev,
             torch.zeros(np_, dtype=torch.float32, device=dev),
             xmapr, ymapr, fcoriolis, stacked=stacked)
     tki, qi, ui, vi = (hlevel_to_plevel(f, ps, a, b, plevels)

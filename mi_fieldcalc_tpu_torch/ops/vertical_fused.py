@@ -34,6 +34,7 @@ import torch
 
 from .._libm import log_f32
 from ..field import Field
+from ..utils.profiling import span
 from ._harness import check_tensor, require
 
 __all__ = ["hlevel_to_plevel_fused", "hlevel_to_plevel_plain"]
@@ -157,8 +158,9 @@ def hlevel_to_plevel_fused(fields: Tuple[Field, ...], ps: Field,
         raise ValueError(f"hlevel_to_plevel_fused: bad variant {variant!r}")
     dev = ps.values.device
     if dev.type == "cpu":
-        return hlevel_to_plevel_plain(fields, ps, alevel, blevel, targets,
-                                      log_p, all_defined)
+        with span("b2.kernel", dev):
+            return hlevel_to_plevel_plain(fields, ps, alevel, blevel,
+                                          targets, log_p, all_defined)
     if dev.type != "cuda":
         raise ValueError(f"hlevel_to_plevel_fused: no kernel for {dev}")
     return _launch(fields, ps, alevel, blevel, targets, log_p, all_defined)
@@ -192,7 +194,9 @@ def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
         check_tensor(name, ps.mask, "ps.mask", (ny, nx), b8, dev)
     for arg, a in (("alevel", alevel), ("blevel", blevel)):
         check_tensor(name, a, arg, (nlev,), f32, dev)
-    tgt = torch.tensor(targets, dtype=f32, device=dev)
+    # staged from pageable memory before .to returns, without waiting for
+    # the stream (a blocking copy would drain the queue every call)
+    tgt = torch.tensor(targets, dtype=f32).to(dev, non_blocking=True)
     values = torch.empty((nvar, nt, ny, nx), dtype=f32, device=dev)
     masks = torch.empty((1 if all_defined else nvar, nt, ny, nx), dtype=b8,
                         device=dev)
@@ -203,13 +207,14 @@ def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launched = ctypes.c_int(0)
-        err = lib.mf_vertical_interp(
-            vp, mp, nvar, ps.values.data_ptr(),
-            None if all_defined else ps.mask.data_ptr(),
-            alevel.data_ptr(), blevel.data_ptr(), tgt.data_ptr(), nt,
-            values.data_ptr(), masks.data_ptr(), nlev, ny, nx, int(log_p),
-            int(all_defined), ctypes.c_void_p(stream),
-            ctypes.byref(launched))
+        with span("b2.kernel", dev):
+            err = lib.mf_vertical_interp(
+                vp, mp, nvar, ps.values.data_ptr(),
+                None if all_defined else ps.mask.data_ptr(),
+                alevel.data_ptr(), blevel.data_ptr(), tgt.data_ptr(), nt,
+                values.data_ptr(), masks.data_ptr(), nlev, ny, nx,
+                int(log_p), int(all_defined), ctypes.c_void_p(stream),
+                ctypes.byref(launched))
         hlevel_to_plevel_fused.launches += launched.value
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: "
