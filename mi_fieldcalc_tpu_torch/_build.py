@@ -115,7 +115,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [p]
+    i64 = ctypes.c_int64
+    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [i64, p]
     lib.mf_vertical_interp.argtypes = ([pp, pp, i] + [p] * 5
                                        + [i, p, p] + [i] * 5 + [p, ip])
     lib.mf_alevel_suite.argtypes = [p] * 8 + [ip, i, ip, p, p] + [i] * 4 + [p]
@@ -129,7 +130,6 @@ def load_library() -> ctypes.CDLL:
     lib.mf_probe_add1.argtypes = [p, pp] + [i] * 6 + [p]
     lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.mf_probe_solver.argtypes = [p] * 5 + [i, p]
-    i64 = ctypes.c_int64
     lib.mf_ensemble_stats.argtypes = [p] * 7 + [i, i64, i, f, p]
     lib.mf_ensemble_prob.argtypes = [p] * 3 + [i, i64, p]
     for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,

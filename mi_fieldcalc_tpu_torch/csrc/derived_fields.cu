@@ -99,7 +99,7 @@ struct Params {
   uint8_t* __restrict__ out_masks;
   int ny, nx;
   int ylo, yhi, xlo, xhi;   // the clamp: rows [ylo, yhi], columns [xlo, xhi]
-  int64_t n3;         // nlev * ny * nx: one output plane
+  int64_t plane_stride;   // elements from one output plane to the next
 };
 
 // Raw |grad T| at an interior point r of the level plane t.
@@ -191,14 +191,14 @@ derived_fields_kernel(const Params P) {
     const float qsat = kEps * et / p_sent;
     const float rhc = clip_nan(qv / qsat, kRhmin, kRhmax);
 
-    o[0 * P.n3] = p_raw;
-    o[1 * P.n3] = tkv / pidcp;
-    o[2 * P.n3] = 100.0f * qv / qsat;
-    o[3 * P.n3] = ewt_inverse(rhc * et, l) + kT0;
-    o[4 * P.n3] = (tkv * kCp + qv * kXlh) / (kCp * pidcp);
-    o[5 * P.n3] =
+    o[0 * P.plane_stride] = p_raw;
+    o[1 * P.plane_stride] = tkv / pidcp;
+    o[2 * P.plane_stride] = 100.0f * qv / qsat;
+    o[3 * P.plane_stride] = ewt_inverse(rhc * et, l) + kT0;
+    o[4 * P.plane_stride] = (tkv * kCp + qv * kXlh) / (kCp * pidcp);
+    o[5 * P.plane_stride] =
         kDuct1 * (p_raw / tkv) + kDuct2 * (qv * p_raw) / (kEps * tkv * tkv);
-    o[6 * P.n3] = sqrtf(uv * uv + vv * vv);
+    o[6 * P.plane_stride] = sqrtf(uv * uv + vv * vv);
 
     // ---- radius-1 stencils at the clamped point (fillEdges) ------------
     const int cy = min(max(y, ylo), yhi);
@@ -209,12 +209,14 @@ derived_fields_kernel(const Params P) {
     const float dtx = __ldg(tk + r + 1) - __ldg(tk + r - 1);
     const float dty = __ldg(tk + r + nx) - __ldg(tk + r - nx);
 
-    o[7 * P.n3] = 0.5f * xm * (__ldg(vf + r + 1) - __ldg(vf + r - 1)) -
-                  0.5f * ym * (__ldg(uf + r + nx) - __ldg(uf + r - nx));
-    o[8 * P.n3] = 0.5f * xm * (__ldg(uf + r + 1) - __ldg(uf + r - 1)) +
-                  0.5f * ym * (__ldg(vf + r + nx) - __ldg(vf + r - nx));
-    o[9 * P.n3] = (__ldg(uf + r) * 0.5f * xm * dtx +
-                   __ldg(vf + r) * 0.5f * ym * dty) * kAdvScale;
+    o[7 * P.plane_stride] =
+        0.5f * xm * (__ldg(vf + r + 1) - __ldg(vf + r - 1)) -
+        0.5f * ym * (__ldg(uf + r + nx) - __ldg(uf + r - nx));
+    o[8 * P.plane_stride] =
+        0.5f * xm * (__ldg(uf + r + 1) - __ldg(uf + r - 1)) +
+        0.5f * ym * (__ldg(vf + r + nx) - __ldg(vf + r - nx));
+    o[9 * P.plane_stride] = (__ldg(uf + r) * 0.5f * xm * dtx +
+                             __ldg(vf + r) * 0.5f * ym * dty) * kAdvScale;
 
     // ---- |grad T| (filled) and TFP --------------------------------------
     // filled |grad T| at the 4 neighbours = raw at their clamped points
@@ -229,30 +231,31 @@ derived_fields_kernel(const Params P) {
       g_c = s_gate[hc];
       g_ring = s_gate[hxm] && s_gate[hxp] && s_gate[hym] && s_gate[hyp];
     }
-    o[10 * P.n3] = a_c;
+    o[10 * P.plane_stride] = a_c;
     const float dadx = 0.5f * xm * (s_grad[hxp] - s_grad[hxm]);
     const float dady = 0.5f * ym * (s_grad[hyp] - s_grad[hym]);
     const bool nonzero = a_c != 0.0f;
     const float ainv = 1.0f / (nonzero ? a_c : 1.0f);
     const float dtdxa = 0.5f * xm * dtx * ainv;
     const float dtdya = 0.5f * ym * dty * ainv;
-    o[11 * P.n3] = -(dadx * dtdxa + dady * dtdya);
+    o[11 * P.plane_stride] = -(dadx * dtdxa + dady * dtdya);
 
     if (kAllDefined) {
       m[0] = ok;
-      m[P.n3] = nonzero;
+      m[P.plane_stride] = nonzero;
     } else {
       const bool vort_m = __ldg(vm + r - 1) && __ldg(vm + r + 1) &&
                           __ldg(um + r - nx) && __ldg(um + r + nx);
-      m[0 * P.n3] = psm;
-      m[1 * P.n3] = tkd && psm;
-      m[2 * P.n3] = tkd && qd && ok;
-      m[3 * P.n3] = tkd && qd && psm;
-      m[4 * P.n3] = ud && vd;
-      m[5 * P.n3] = vort_m;   // also divergence's mask (reference quirk)
-      m[6 * P.n3] = __ldg(um + r) && __ldg(vm + r) && g_c;
-      m[7 * P.n3] = g_c;
-      m[8 * P.n3] = g_c && nonzero && g_ring;
+      m[0 * P.plane_stride] = psm;
+      m[1 * P.plane_stride] = tkd && psm;
+      m[2 * P.plane_stride] = tkd && qd && ok;
+      m[3 * P.plane_stride] = tkd && qd && psm;
+      m[4 * P.plane_stride] = ud && vd;
+      // also divergence's mask (reference quirk)
+      m[5 * P.plane_stride] = vort_m;
+      m[6 * P.plane_stride] = __ldg(um + r) && __ldg(vm + r) && g_c;
+      m[7 * P.plane_stride] = g_c;
+      m[8 * P.plane_stride] = g_c && nonzero && g_ring;
     }
   }
 }
@@ -266,7 +269,11 @@ extern "C" {
 // out_masks holds 2 planes when all_defined != 0, else 9.  (row0, col0) is
 // the global position of the local (0, 0) in a global (nyg, nxg) grid;
 // the unsharded call passes 0, 0, ny, nx.  A block that holds no point of
-// the global interior's clamp window is refused.
+// the global interior's clamp window is refused.  out_plane_stride is the
+// distance, in elements, from one output plane to the next, the same for
+// the value planes (floats) and the mask planes (bytes): 0 is the dense
+// nlev * ny * nx; a member's slot in a [planes, nmem, nlev, ny, nx] stack
+// passes nmem * nlev * ny * nx.  A stride below nlev * ny * nx is refused.
 int mf_derived_fields(const float* tk, const float* q, const float* u,
                       const float* v, const uint8_t* tkm, const uint8_t* qm,
                       const uint8_t* um, const uint8_t* vm, const float* ps,
@@ -275,10 +282,16 @@ int mf_derived_fields(const float* tk, const float* q, const float* u,
                       const float* ymapr, float* out_values,
                       uint8_t* out_masks, int nlev, int ny, int nx,
                       int row0, int col0, int nyg, int nxg,
-                      int all_defined, void* stream) {
+                      int all_defined, int64_t out_plane_stride,
+                      void* stream) {
   const int64_t plane = static_cast<int64_t>(ny) * nx;
   if (nlev < 1 || nlev > 65535 || ny < 3 || nx < 3 ||
       (ny + kTileY - 1) / kTileY > 65535 || plane > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t dense = plane * nlev;
+  if (out_plane_stride == 0) out_plane_stride = dense;
+  if (out_plane_stride < dense) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ylo = std::max(1, 1 - row0);
@@ -290,7 +303,7 @@ int mf_derived_fields(const float* tk, const float* q, const float* u,
   }
   const Params P{tk, q, u, v, tkm, qm, um, vm, ps, psm, alevel, blevel,
                  xmapr, ymapr, out_values, out_masks, ny, nx,
-                 ylo, yhi, xlo, xhi, plane * nlev};
+                 ylo, yhi, xlo, xhi, out_plane_stride};
   const dim3 grid((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY,
                   nlev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -10,7 +10,9 @@ by the members whose whole field is not undefined (cc:2840-2847).
 
 With ``fused=True`` on CUDA tensors each member is one launch of the
 pipeline kernel (:func:`..ops.fused.derived_fields_fused`), so the kernel
-runs ``nmem`` times; the JAX package ``vmap``s its ``pallas_call`` over the
+runs ``nmem`` times, each launch writing its member's planes in place in
+the member stacks (on CPU tensors the plain version's outputs are copied
+there); the JAX package ``vmap``s its ``pallas_call`` over the
 members instead.  Both routes write the members' fields into one stack and
 run the same reductions on it, so they agree bit for bit wherever the
 kernel agrees with its plain version.  The reductions of each field are one
@@ -28,7 +30,7 @@ import torch
 from ..field import Field
 from ..ops._harness import not_ported
 from ..ops.ensemble_fused import ensemble_stats_fused
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .pipeline import DerivedFields, DerivedFieldsStacked, derived_fields
 
 __all__ = ["EnsembleSummary", "ensemble_derived_summary"]
@@ -55,34 +57,46 @@ def ensemble_member_fields(tk: Field, q: Field, u: Field, v: Field,
     ``[nmem, nlev, ny, nx]`` Fields.  ``fused=True`` takes each member
     through :func:`..ops.fused.derived_fields_fused` (the kernel on CUDA
     tensors, its plain version on CPU tensors), with ``all_defined`` passed
-    through; ``fused=False`` through :func:`.pipeline.derived_fields`."""
+    through; ``fused=False`` through :func:`.pipeline.derived_fields`.
+
+    With ``fused=True`` each member's outputs land in its slot ``[:, m]``
+    of the stacks: the values ``[12, nmem, ...]`` and the kernel's own mask
+    planes, ``[9, nmem, ...]`` (``[2, nmem, ...]`` under ``all_defined``).
+    On CUDA tensors the kernel writes them in place and the counter
+    ``ensemble.members_in_place`` counts each member; on CPU tensors the
+    plain version's outputs are copied in.  Fields whose masks share a
+    plane share its tensor (:meth:`.pipeline.DerivedFieldsStacked.
+    as_fields`).  ``fused=False`` copies each member's 12 values and masks
+    into ``[12, nmem, ...]`` stacks, in the span ``ensemble.member_stack``,
+    which the fused route keeps, empty."""
     nmem = tk.values.shape[0]
     dev = tk.values.device
     shape = tuple(tk.values.shape[1:])
+    nplanes = 12 if not fused else 2 if all_defined else 9
     values = torch.empty((12, nmem) + shape, dtype=torch.float32,
                          device=dev)
-    masks = torch.empty((12, nmem) + shape, dtype=torch.bool, device=dev)
+    masks = torch.empty((nplanes, nmem) + shape, dtype=torch.bool,
+                        device=dev)
     if fused:
         from ..ops.fused import derived_fields_fused
     for m in range(nmem):
         args = [_member(f, m) for f in (tk, q, u, v, ps)]
         if fused:
-            st = derived_fields_fused(*args, alevel, blevel, xmapr, ymapr,
-                                      fcoriolis, stacked=True,
-                                      all_defined=all_defined)
-            with span("ensemble.member_stack"):
-                values[:, m] = st.values
-                for i in range(12):
-                    masks[i, m] = DerivedFieldsStacked.mask_plane(
-                        st.masks, i, st.values[i])
+            derived_fields_fused(*args, alevel, blevel, xmapr, ymapr,
+                                 fcoriolis, all_defined=all_defined,
+                                 out_values=values[:, m],
+                                 out_masks=masks[:, m])
+            if dev.type == "cuda":
+                count("ensemble.members_in_place")
         else:
             out = derived_fields(*args, alevel, blevel, xmapr, ymapr,
                                  fcoriolis)
-            with span("ensemble.member_stack"):
+        with span("ensemble.member_stack"):
+            if not fused:
                 for i, f in enumerate(out):
                     values[i, m] = f.values
                     masks[i, m] = f.mask
-    return DerivedFields(*[Field(values[i], masks[i]) for i in range(12)])
+    return DerivedFieldsStacked(values, masks).as_fields()
 
 
 @span("ensemble.reduce")

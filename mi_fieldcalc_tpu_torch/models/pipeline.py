@@ -74,9 +74,11 @@ class DerivedFieldsStacked(NamedTuple):
 
     @classmethod
     def mask_plane(cls, masks: torch.Tensor, i: int,
-                   values_i: torch.Tensor) -> torch.Tensor:
+                   values_i: torch.Tensor,
+                   true: torch.Tensor = None) -> torch.Tensor:
         """Field ``i``'s bool mask from a 12-, 9- or 2-plane stack
-        (``values_i`` gives the shape of a synthesised constant mask)."""
+        (``values_i`` gives the shape of a synthesised constant mask;
+        ``true``, where given, is that mask)."""
         if masks.dtype != torch.bool or masks.dim() != values_i.dim() + 1:
             raise not_ported(
                 "mi_fieldcalc_tpu.models.pipeline.DerivedFieldsStacked."
@@ -85,18 +87,25 @@ class DerivedFieldsStacked(NamedTuple):
         if nplanes == 2:
             j = cls.MASK2[i]
             if j < 0:
-                return torch.ones(values_i.shape, dtype=torch.bool,
-                                  device=values_i.device)
+                return true if true is not None else torch.ones(
+                    values_i.shape, dtype=torch.bool, device=values_i.device)
         else:
             j = cls.MASK9[i] if nplanes == 9 else i
         return masks[j]
 
-    def field(self, i: int) -> Field:
+    def field(self, i: int, true: torch.Tensor = None) -> Field:
         return Field(self.values[i],
-                     self.mask_plane(self.masks, i, self.values[i]))
+                     self.mask_plane(self.masks, i, self.values[i], true))
 
     def as_fields(self) -> DerivedFields:
-        return DerivedFields(*[self.field(i) for i in range(12)])
+        """The 12 Fields; fields whose masks share a plane share its
+        tensor, and the fields a 2-plane stack leaves all True share one
+        all-True mask."""
+        true = None
+        if self.masks.dtype == torch.bool and self.masks.shape[0] == 2:
+            true = torch.ones(self.values.shape[1:], dtype=torch.bool,
+                              device=self.values.device)
+        return DerivedFields(*[self.field(i, true) for i in range(12)])
 
 
 def derived_fields(tk: Field, q: Field, u: Field, v: Field, ps: Field,

@@ -113,7 +113,8 @@ def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
                          alevel, blevel, xmapr, ymapr, fcoriolis,
                          stacked: bool = True,
                          all_defined: bool = False, global_shape=None,
-                         grid_offsets=None, halo_rows: int = 2):
+                         grid_offsets=None, halo_rows: int = 2,
+                         out_values=None, out_masks=None):
     """All 12 pipeline outputs in one pass, as a
     :class:`DerivedFieldsStacked`: values ``f32[12, nlev, ny, nx]`` and
     masks ``bool[9, nlev, ny, nx]``, or ``bool[2, nlev, ny, nx]`` when
@@ -134,19 +135,34 @@ def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
     ``global_shape`` without ``grid_offsets`` is the TPU's padded layout,
     not ported, unless it is the block's own shape.
 
+    ``out_values`` and ``out_masks``, given together, are where the
+    outputs land, and what is returned: ``f32[12, nlev, ny, nx]`` and the
+    route's ``bool[9 | 2, nlev, ny, nx]``, each plane contiguous and the
+    planes of both one stride apart, in elements, of at least ``nlev * ny
+    * nx``, as member ``m``'s slot ``[:, m]`` of ``[12 | 9 | 2, nmem, nlev,
+    ny, nx]`` stacks is.  Without them the outputs are new dense tensors.
+
     On CUDA tensors this launches the kernel and counts the launch in
     ``derived_fields_fused.launches``; on CPU tensors it runs
-    :func:`derived_fields_plain`."""
+    :func:`derived_fields_plain` (and copies its outputs into
+    ``out_values`` / ``out_masks``)."""
     dev = tk.values.device
     if dev.type == "cpu":
+        dense = not _out_stride(out_values, out_masks, tk.values.shape,
+                                all_defined, dev)
         with span("b1.kernel", dev):
             out = derived_fields_plain(tk, q, u, v, ps, alevel, blevel,
                                        xmapr, ymapr, fcoriolis, all_defined,
                                        global_shape, grid_offsets, halo_rows)
+            if not dense:
+                out_values.copy_(out.values)
+                out_masks.copy_(out.masks)
+                out = DerivedFieldsStacked(out_values, out_masks)
     elif dev.type == "cuda":
         out = _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
                       all_defined, _placement(tk.values.shape, global_shape,
-                                              grid_offsets, halo_rows))
+                                              grid_offsets, halo_rows),
+                      out_values, out_masks)
     else:
         raise ValueError(f"derived_fields_fused: no kernel for {dev}")
     return out if stacked else out.as_fields()
@@ -160,11 +176,48 @@ def _check(t, name: str, shape: tuple, dtype: torch.dtype,
     check_tensor("derived_fields_fused", t, name, shape, dtype, dev)
 
 
+def _out_stride(out_values, out_masks, shape: tuple, all_defined: bool,
+                dev: torch.device) -> int:
+    """The plane stride, in elements, of the caller's output tensors, or
+    0 (new dense outputs) without them; raises on any layout other than
+    the one the kernel writes (:func:`derived_fields_fused`)."""
+    if out_values is None and out_masks is None:
+        return 0
+    name = "derived_fields_fused"
+    if out_values is None or out_masks is None:
+        raise ValueError(f"{name}: give out_values and out_masks together")
+    nplanes = 2 if all_defined else 9
+    for arg, t, planes, dtype in (
+            ("out_values", out_values, 12, torch.float32),
+            ("out_masks", out_masks, nplanes, torch.bool)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {arg} must be a tensor on {dev}, got "
+                            f"{type(t).__name__}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != (planes,) + tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {(planes,) + tuple(shape)}")
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name}: each plane of {arg} must be "
+                             f"contiguous")
+    stride = out_values.stride(0)
+    if out_masks.stride(0) != stride or stride < out_values[0].numel():
+        raise ValueError(f"{name}: out_values and out_masks need one plane "
+                         f"stride of at least nlev * ny * nx elements, got "
+                         f"{stride} and {out_masks.stride(0)}")
+    return stride
+
+
 def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
-            all_defined: bool, placement: tuple = None
-            ) -> DerivedFieldsStacked:
+            all_defined: bool, placement: tuple = None, out_values=None,
+            out_masks=None) -> DerivedFieldsStacked:
     """One launch; ``placement`` is :func:`_placement`'s ``(row0, col0,
-    nyg, nxg)``, the whole grid when ``None``."""
+    nyg, nxg)``, the whole grid when ``None``; the outputs land in
+    ``out_values`` / ``out_masks`` where given (:func:`_out_stride`)."""
     from .._build import load_library
 
     dev = tk.values.device
@@ -189,9 +242,14 @@ def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
     for name, a in (("xmapr", xmapr), ("ymapr", ymapr)):
         _check(a, name, (ny, nx), f32, dev)
 
-    values = torch.empty((12, nlev, ny, nx), dtype=f32, device=dev)
-    masks = torch.empty((2 if all_defined else 9, nlev, ny, nx), dtype=b8,
-                        device=dev)
+    stride = _out_stride(out_values, out_masks, (nlev, ny, nx), all_defined,
+                         dev)
+    if stride:
+        values, masks = out_values, out_masks
+    else:
+        values = torch.empty((12, nlev, ny, nx), dtype=f32, device=dev)
+        masks = torch.empty((2 if all_defined else 9, nlev, ny, nx),
+                            dtype=b8, device=dev)
     lib = load_library()
 
     def ptr(t):
@@ -209,7 +267,7 @@ def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
                 mptr(tk), mptr(q), mptr(u), mptr(v), ptr(ps.values),
                 mptr(ps), ptr(alevel), ptr(blevel), ptr(xmapr), ptr(ymapr),
                 ptr(values), ptr(masks), nlev, ny, nx, *placement,
-                int(all_defined), ctypes.c_void_p(stream))
+                int(all_defined), stride, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"derived_fields_fused: kernel launch failed: "
                            f"{lib.mf_error_string(err).decode()}")

@@ -40,7 +40,7 @@ SHAPES = [(1, 3, 3), (3, 37, 61), (2, 5, 929), (2, 33, 135), (1, 4, 5)]
 def host_lib(tmp_path_factory):
     lib = host_library(tmp_path_factory, "derived_fields.cu", 4)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [p]
+    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_int64, p]
     lib.mf_derived_fields.restype = i
     return lib
 
@@ -80,26 +80,84 @@ def _args(raw, all_defined):
     return fields + tuple(torch.from_numpy(a) for a in raw[5:])
 
 
-def _host_fused(lib, args, all_defined) -> DerivedFieldsStacked:
-    """One host launch of B1, arguments as the wrapper (``fused._launch``)
-    passes them."""
-    tk, q, u, v, ps, al, bl, xm, ym, _ = args
-    nlev, ny, nx = tk.values.shape
-    values = torch.empty((12, nlev, ny, nx), dtype=torch.float32)
-    masks = torch.empty((2 if all_defined else 9, nlev, ny, nx),
-                        dtype=torch.bool)
+#: where a launch writes: dense new planes, or member 1's slot of
+#: 3-member stacks ``[planes, 3, nlev, ny, nx]`` (``out_plane_stride`` 3
+#: planes)
+INTO = ["dense", "member 1 of 3"]
+#: what the stacks hold before the launch, outside the member's slot
+SENTINEL_VALUE, SENTINEL_MASK = -7.25, 3
 
-    def mptr(f):
-        return None if all_defined else f.mask.data_ptr()
 
-    err = lib.mf_derived_fields(
+class _MemberStack:
+    """3-member value and mask stacks filled with sentinels, and the slot
+    ``[:, 1]`` a launch writes; the mask stack is bytes, so that the
+    sentinel 3 is neither of the 0 / 1 the kernel writes."""
+
+    def __init__(self, nplanes: int, shape: tuple):
+        self.values = torch.full((12, 3) + shape, SENTINEL_VALUE)
+        self.masks = torch.full((nplanes, 3) + shape, SENTINEL_MASK,
+                                dtype=torch.uint8)
+
+    def slot(self) -> tuple:
+        """``(values, masks, out_plane_stride)`` of member 1."""
+        return (self.values[:, 1], self.masks[:, 1],
+                self.values.stride(0))
+
+    def written(self) -> DerivedFieldsStacked:
+        """Member 1's planes, after checking that members 0 and 2 still
+        hold the sentinels."""
+        for m in (0, 2):
+            assert bool((self.values[:, m] == SENTINEL_VALUE).all()), m
+            assert bool((self.masks[:, m] == SENTINEL_MASK).all()), m
+        assert bool((self.masks[:, 1] <= 1).all())
+        return DerivedFieldsStacked(self.values[:, 1].contiguous(),
+                                    self.masks[:, 1].bool())
+
+
+def _call(lib, f, al, bl, xm, ym, offsets, global_shape, all_defined,
+          values, masks, stride) -> int:
+    """``mf_derived_fields`` as the wrapper (``fused._launch``) calls it;
+    its error code."""
+    tk, q, u, v, ps = f
+
+    def mptr(fl):
+        return None if all_defined else fl.mask.data_ptr()
+
+    return lib.mf_derived_fields(
         tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
         v.values.data_ptr(), mptr(tk), mptr(q), mptr(u), mptr(v),
         ps.values.data_ptr(), mptr(ps), al.data_ptr(), bl.data_ptr(),
         xm.data_ptr(), ym.data_ptr(), values.data_ptr(), masks.data_ptr(),
-        nlev, ny, nx, 0, 0, ny, nx, int(all_defined), None)
+        *tk.values.shape, *offsets, *global_shape, int(all_defined), stride,
+        None)
+
+
+def _launch_into(lib, f, al, bl, xm, ym, offsets, global_shape,
+                 all_defined, into="dense") -> DerivedFieldsStacked:
+    """One host launch of B1, into new dense planes or into member 1 of 3
+    (``into``)."""
+    shape = tuple(f[0].values.shape)
+    nplanes = 2 if all_defined else 9
+    if into == "dense":
+        values = torch.empty((12,) + shape, dtype=torch.float32)
+        masks = torch.empty((nplanes,) + shape, dtype=torch.bool)
+        stride = 0
+    else:
+        stack = _MemberStack(nplanes, shape)
+        values, masks, stride = stack.slot()
+    err = _call(lib, f, al, bl, xm, ym, offsets, global_shape, all_defined,
+                values, masks, stride)
     assert err == 0
-    return DerivedFieldsStacked(values, masks)
+    if into == "dense":
+        return DerivedFieldsStacked(values, masks)
+    return stack.written()
+
+
+def _host_fused(lib, args, all_defined, into="dense") -> DerivedFieldsStacked:
+    """One host launch of B1 on the whole grid."""
+    ny, nx = args[0].values.shape[1:]
+    return _launch_into(lib, args[:5], *args[5:9], (0, 0), (ny, nx),
+                        all_defined, into)
 
 
 def _assert_same(got, ref, label):
@@ -114,14 +172,22 @@ def _assert_same(got, ref, label):
     assert not any(bad), (label, bad)
 
 
+@pytest.mark.parametrize("into", INTO)
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("all_defined", [False, True])
-def test_host_fused_matches_plain(host_lib, exact_sqrt, shape, all_defined):
+def test_host_fused_matches_plain(host_lib, exact_sqrt, shape, all_defined,
+                                  into):
+    """Dense, or into member 1 of 3-member stacks (``out_plane_stride`` 3
+    planes), where the planes equal the dense launch's bit for bit and
+    members 0 and 2 keep their sentinels."""
     raw = _inputs(*shape, seed=sum(shape), undefs=not all_defined)
     args = _args(raw, all_defined)
-    got = _host_fused(host_lib, args, all_defined)
+    got = _host_fused(host_lib, args, all_defined, into)
     ref = fused.derived_fields_plain(*args, all_defined=all_defined)
-    _assert_same(got, ref, (shape, all_defined))
+    _assert_same(got, ref, (shape, all_defined, into))
+    if into != "dense":
+        _assert_same(got, _host_fused(host_lib, args, all_defined),
+                     (shape, all_defined, "dense"))
 
 
 def test_host_fused_writes_only_its_planes(host_lib, exact_sqrt):
@@ -142,7 +208,7 @@ def test_host_fused_writes_only_its_planes(host_lib, exact_sqrt):
         u.mask.data_ptr(), v.mask.data_ptr(), ps.values.data_ptr(),
         ps.mask.data_ptr(), al.data_ptr(), bl.data_ptr(), xm.data_ptr(),
         ym.data_ptr(), vbuf[3:].data_ptr(), mbuf[5:].data_ptr(), *shape,
-        0, 0, *shape[1:], 0, None)
+        0, 0, *shape[1:], 0, 0, None)
     assert err == 0
     got = DerivedFieldsStacked(vbuf[3:3 + 12 * n].reshape(12, *shape),
                                mbuf[5:5 + 9 * n].reshape(9, *shape).bool())
@@ -177,37 +243,22 @@ SHARD_GRIDS = [(2, 2), (4, 1), (1, 4), (3, 2)]
 SHARD_SHAPE = (2, 37, 61)
 
 
-def _host_launcher(lib, all_defined, nyg, nxg):
+def _host_launcher(lib, all_defined, nyg, nxg, into="dense"):
     """``chip_smoke.run_plan``'s launch through the host library, with a
     launch's offsets in the global ``(nyg, nxg)`` grid."""
     def launch(f, al, bl, xm, ym, offsets, halo_rows):
-        tk, q, u, v, ps = f
-        nlev, ny, nx = tk.values.shape
-        values = torch.empty((12, nlev, ny, nx), dtype=torch.float32)
-        masks = torch.empty((2 if all_defined else 9, nlev, ny, nx),
-                            dtype=torch.bool)
-
-        def mptr(fl):
-            return None if all_defined else fl.mask.data_ptr()
-
-        err = lib.mf_derived_fields(
-            tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
-            v.values.data_ptr(), mptr(tk), mptr(q), mptr(u), mptr(v),
-            ps.values.data_ptr(), mptr(ps), al.data_ptr(), bl.data_ptr(),
-            xm.data_ptr(), ym.data_ptr(), values.data_ptr(),
-            masks.data_ptr(), nlev, ny, nx, *offsets, nyg, nxg,
-            int(all_defined), None)
-        assert err == 0
-        return DerivedFieldsStacked(values, masks)
+        return _launch_into(lib, f, al, bl, xm, ym, offsets, (nyg, nxg),
+                            all_defined, into)
 
     return launch
 
 
+@pytest.mark.parametrize("into", INTO)
 @pytest.mark.parametrize("grid", SHARD_GRIDS)
 @pytest.mark.parametrize("overlap", [False, True])
 @pytest.mark.parametrize("all_defined", [False, True])
 def test_host_fused_shards_match_unsharded(host_lib, exact_sqrt, grid,
-                                           overlap, all_defined):
+                                           overlap, all_defined, into):
     """B1 on every shard of a (gy, gx) cut, with the shard's offsets: on
     its block and a radius-2 halo ring (zeros, mask False, beyond the
     physical edges), or, with overlap, on its block alone and on the seam
@@ -215,11 +266,13 @@ def test_host_fused_shards_match_unsharded(host_lib, exact_sqrt, grid,
     bit for bit at every point.  Each launch also equals the plain version
     under the same offsets on the part of its output that is kept (beyond
     the physical edges ps is 0 there, and the kernel's pow takes only
-    positive pressures, as in the unsharded kernel's masked lanes)."""
+    positive pressures, as in the unsharded kernel's masked lanes).  With
+    ``into`` member 1 of 3, every shard's launch writes into its slot of
+    3-member stacks and leaves the other members' sentinels."""
     ny, nx = SHARD_SHAPE[1:]
     raw = _inputs(*SHARD_SHAPE, seed=5, undefs=not all_defined)
     args = _args(raw, all_defined)[:9]
-    launch = _host_launcher(host_lib, all_defined, ny, nx)
+    launch = _host_launcher(host_lib, all_defined, ny, nx, into)
     whole = _host_fused(host_lib, _args(raw, all_defined), all_defined)
     plan = chip_smoke.shard_plan(ny, nx, *grid, overlap)
     got = chip_smoke.run_plan(launch, args, plan, all_defined)
@@ -233,7 +286,8 @@ def test_host_fused_shards_match_unsharded(host_lib, exact_sqrt, grid,
         out = launch(a[:5], *a[5:], offsets, p["halo_rows"])
         _assert_same(chip_smoke.kept(out, p["take"]),
                      chip_smoke.kept(ref, p["take"]),
-                     (grid, overlap, all_defined, p["shard"], p["kind"]))
+                     (grid, overlap, all_defined, into, p["shard"],
+                      p["kind"]))
 
 
 def test_host_fused_refuses_a_block_off_the_grid(host_lib):
@@ -255,3 +309,30 @@ def test_host_fused_refuses_a_block_off_the_grid(host_lib):
                                    grid_offsets=(torch.tensor(0), 0))
     with pytest.raises(NotImplementedError, match="padded layout"):
         fused.derived_fields_plain(*args, global_shape=(8, 8))
+
+
+@pytest.mark.parametrize("all_defined", [False, True])
+@pytest.mark.parametrize("short", [1, "plane", "all", "negative"])
+def test_host_fused_refuses_a_plane_stride_below_the_planes(
+        host_lib, all_defined, short):
+    """An ``out_plane_stride`` below ``nlev * ny * nx`` (one element short,
+    one level plane, 1, or negative) is refused by the C entry, and
+    nothing is written; ``nlev * ny * nx`` itself is the dense launch."""
+    shape = (2, 5, 6)
+    n3 = int(np.prod(shape))
+    stride = {1: n3 - 1, "plane": n3 // shape[0], "all": 1,
+              "negative": -n3}[short]
+    args = _args(_inputs(*shape, seed=2, undefs=False), all_defined)
+    stack = _MemberStack(2 if all_defined else 9, shape)
+    values, masks, _ = stack.slot()
+    err = _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
+                all_defined, values, masks, stride)
+    assert err != 0
+    assert bool((stack.values == SENTINEL_VALUE).all())
+    assert bool((stack.masks == SENTINEL_MASK).all())
+    dense = _host_fused(host_lib, args, all_defined)
+    values = torch.empty_like(dense.values)
+    masks = torch.empty_like(dense.masks)
+    assert _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
+                 all_defined, values, masks, n3) == 0
+    _assert_same(DerivedFieldsStacked(values, masks), dense, short)

@@ -445,10 +445,10 @@ def test_spans_on_a_card_time_by_events_and_count_allocations(
 
 @pytest.mark.cuda
 def test_the_summary_on_the_card_and_then_on_the_host():
-    """On the card the summary's spans are timed by events and its root
-    counts the allocator's calls; after that, in the same process, the
-    same summary on host tensors records host-clock spans and no
-    counter."""
+    """On the card the summary's spans are timed by events, its root
+    counts the allocator's calls and its member loop the members written
+    in place; after that, in the same process, the same summary on host
+    tensors records host-clock spans and no counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
@@ -461,7 +461,9 @@ def test_the_summary_on_the_card_and_then_on_the_host():
     card = tprof.take()
     # the reductions' kernel: one ensemble.stats a field, nothing under it
     assert len(card.spans) == 3 + 2 * 2 + 12
-    assert set(card.counters) == {"allocator.device_allocs"}
+    assert set(card.counters) == {"allocator.device_allocs",
+                                  "ensemble.members_in_place"}
+    assert card.counters["ensemble.members_in_place"] == 2
     assert all(s.ms > 0 for s in card.spans)
     # events, not the host clock: every span found its card
     assert all(s.ms != (s.end_ns - s.start_ns) / 1e6 for s in card.spans)
