@@ -15,6 +15,10 @@ deterministic pow and the bitwise mask gates rely on.  The library lands in
 ``_build/`` (git-ignored) under a name keyed by a hash of the sources and
 flags, so unchanged sources are not rebuilt.  A missing ``nvcc`` or a
 failed compile raises with the compiler's message.
+
+:data:`_SIGNATURES` declares every C entry's arguments, and :func:`call`
+is the one way the wrappers and labs launch one: on the device's current
+stream, raising with the CUDA error where the entry refuses.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 __all__ = ["NVCC_FLAGS", "find_nvcc", "build", "load_library"]
 
@@ -109,36 +115,76 @@ def build(out_dir: Path | None = None) -> Path:
     return lib
 
 
+_P, _I, _F, _I64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_int64)
+_PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+
+
+class _Stream(ctypes.c_void_p):
+    """An entry's ``void* stream`` parameter: where :func:`call` passes the
+    current stream."""
+
+
+_S = _Stream
+
+#: every C entry of ``csrc/*.cu`` and its ctypes argument types, in the
+#: only copy Python holds (``tests/test_torch_build.py`` holds it to the C
+#: signatures); each returns an ``int`` error code but ``mf_error_string``
+_SIGNATURES = {
+    "mf_derived_fields": [_P] * 16 + [_I] * 8 + [_I64, _S],
+    "mf_vertical_interp": ([_PP, _PP, _I] + [_P] * 5 + [_I, _P, _P]
+                           + [_I] * 5 + [_S, _IP]),
+    "mf_alevel_suite": [_P] * 8 + [_IP, _I, _IP, _P, _P] + [_I] * 4 + [_S],
+    "mf_hlevel_suite": [_P] * 10 + [_IP, _I, _IP, _P, _P] + [_I] * 4 + [_S],
+    "mf_vessel_icing_mincog": [_PP] + [_P] * 4 + [_I, _F, _I, _P, _I, _S],
+    "mf_vessel_icing_modstall": [_PP] + [_P] * 3 + [_I, _F, _P, _I, _S],
+    "mf_vessel_icing_attributes": [_I] + [_IP] * 4,
+    "mf_probe_copy": [_P] * 14 + [_I] * 5 + [_S],
+    "mf_probe_add1": [_P, _PP] + [_I] * 6 + [_S],
+    "mf_probe_window": [_P] * 4 + [_I] * 4 + [_S],
+    "mf_probe_solver": [_P] * 5 + [_I, _S],
+    "mf_ensemble_stats": [_P] * 7 + [_I, _I64, _I, _F, _S],
+    "mf_ensemble_prob": [_P] * 3 + [_I, _I64, _S],
+    "mf_error_string": [_I],
+}
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with every entry of :data:`_SIGNATURES` that it exports
+    declared; entries it lacks are skipped (a host build holds one
+    source's)."""
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = (ctypes.c_char_p if name == "mf_error_string"
+                          else ctypes.c_int)
+    return lib
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
-    lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    i64 = ctypes.c_int64
-    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [i64, p]
-    lib.mf_vertical_interp.argtypes = ([pp, pp, i] + [p] * 5
-                                       + [i, p, p] + [i] * 5 + [p, ip])
-    lib.mf_alevel_suite.argtypes = [p] * 8 + [ip, i, ip, p, p] + [i] * 4 + [p]
-    lib.mf_hlevel_suite.argtypes = ([p] * 10 + [ip, i, ip, p, p] + [i] * 4
-                                    + [p])
-    f = ctypes.c_float
-    lib.mf_vessel_icing_mincog.argtypes = [pp] + [p] * 4 + [i, f, i, p, i, p]
-    lib.mf_vessel_icing_modstall.argtypes = [pp] + [p] * 3 + [i, f, p, i, p]
-    lib.mf_vessel_icing_attributes.argtypes = [i] + [ip] * 4
-    lib.mf_probe_copy.argtypes = [p] * 14 + [i] * 5 + [p]
-    lib.mf_probe_add1.argtypes = [p, pp] + [i] * 6 + [p]
-    lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.mf_probe_solver.argtypes = [p] * 5 + [i, p]
-    lib.mf_ensemble_stats.argtypes = [p] * 7 + [i, i64, i, f, p]
-    lib.mf_ensemble_prob.argtypes = [p] * 3 + [i, i64, p]
-    for fn in (lib.mf_derived_fields, lib.mf_vertical_interp,
-               lib.mf_alevel_suite, lib.mf_hlevel_suite,
-               lib.mf_vessel_icing_mincog, lib.mf_vessel_icing_modstall,
-               lib.mf_vessel_icing_attributes, lib.mf_probe_copy,
-               lib.mf_probe_add1, lib.mf_probe_window, lib.mf_probe_solver,
-               lib.mf_ensemble_stats, lib.mf_ensemble_prob):
-        fn.restype = i
-    lib.mf_error_string.argtypes = [i]
-    lib.mf_error_string.restype = ctypes.c_char_p
-    return lib
+    return _declare(ctypes.CDLL(str(build())))
+
+
+def _c_args(entry: str, args: tuple, stream=None) -> tuple:
+    """``entry``'s C arguments: ``args`` in its order, each tensor as its
+    data pointer, with ``stream`` put in its stream slot."""
+    args = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    at = _SIGNATURES[entry].index(_Stream)
+    return args[:at] + (stream,) + args[at:]
+
+
+def call(fn: str, entry: str, dev: torch.device, *args) -> None:
+    """Launch the library's ``entry`` on ``dev``'s current stream with
+    ``args`` (:func:`_c_args`), and raise, naming ``fn``, with the CUDA error
+    if the launch was refused."""
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(*_c_args(entry, args, stream))
+    if err != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed: "
+                           f"{lib.mf_error_string(err).decode()}")

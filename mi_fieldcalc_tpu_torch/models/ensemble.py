@@ -45,7 +45,26 @@ class EnsembleSummary(NamedTuple):
 
 
 def _member(f: Field, m: int) -> Field:
-    return Field(f.values[m], f.mask[m])
+    return Field(f.values[m], None if f.mask is None else f.mask[m])
+
+
+def _member_stack(fields, shape: tuple, nplanes: int,
+                  fill) -> DerivedFields:
+    """The member stacks' layout: values ``f32[12, nmem, *shape]`` and
+    masks ``bool[nplanes, nmem, *shape]`` (12 planes, or the pipeline
+    kernel's 9 or 2), ``nmem`` and the device those of the ``[nmem, ...]``
+    ``fields``.  ``fill(members, values, masks)`` writes member ``m``'s
+    planes into its slot ``[:, m]``, given member ``m`` of each field (a
+    mask None stays None).  Fields whose masks share a plane share its
+    tensor (:meth:`.pipeline.DerivedFieldsStacked.as_fields`)."""
+    nmem, dev = fields[0].values.shape[0], fields[0].values.device
+    values = torch.empty((12, nmem) + shape, dtype=torch.float32,
+                         device=dev)
+    masks = torch.empty((nplanes, nmem) + shape, dtype=torch.bool,
+                        device=dev)
+    for m in range(nmem):
+        fill([_member(f, m) for f in fields], values[:, m], masks[:, m])
+    return DerivedFieldsStacked(values, masks).as_fields()
 
 
 @span("ensemble.member_fields")
@@ -64,39 +83,31 @@ def ensemble_member_fields(tk: Field, q: Field, u: Field, v: Field,
     planes, ``[9, nmem, ...]`` (``[2, nmem, ...]`` under ``all_defined``).
     On CUDA tensors the kernel writes them in place and the counter
     ``ensemble.members_in_place`` counts each member; on CPU tensors the
-    plain version's outputs are copied in.  Fields whose masks share a
-    plane share its tensor (:meth:`.pipeline.DerivedFieldsStacked.
-    as_fields`).  ``fused=False`` copies each member's 12 values and masks
-    into ``[12, nmem, ...]`` stacks, in the span ``ensemble.member_stack``,
-    which the fused route keeps, empty."""
-    nmem = tk.values.shape[0]
+    plain version's outputs are copied in.  ``fused=False`` copies each
+    member's 12 values and masks into ``[12, nmem, ...]`` stacks, in the
+    span ``ensemble.member_stack``, which the fused route keeps, empty."""
     dev = tk.values.device
-    shape = tuple(tk.values.shape[1:])
-    nplanes = 12 if not fused else 2 if all_defined else 9
-    values = torch.empty((12, nmem) + shape, dtype=torch.float32,
-                         device=dev)
-    masks = torch.empty((nplanes, nmem) + shape, dtype=torch.bool,
-                        device=dev)
+    rest = (alevel, blevel, xmapr, ymapr, fcoriolis)
     if fused:
         from ..ops.fused import derived_fields_fused
-    for m in range(nmem):
-        args = [_member(f, m) for f in (tk, q, u, v, ps)]
+
+    def fill(args, values, masks):
         if fused:
-            derived_fields_fused(*args, alevel, blevel, xmapr, ymapr,
-                                 fcoriolis, all_defined=all_defined,
-                                 out_values=values[:, m],
-                                 out_masks=masks[:, m])
+            derived_fields_fused(*args, *rest, all_defined=all_defined,
+                                 out_values=values, out_masks=masks)
             if dev.type == "cuda":
                 count("ensemble.members_in_place")
         else:
-            out = derived_fields(*args, alevel, blevel, xmapr, ymapr,
-                                 fcoriolis)
+            out = derived_fields(*args, *rest)
         with span("ensemble.member_stack"):
             if not fused:
                 for i, f in enumerate(out):
-                    values[i, m] = f.values
-                    masks[i, m] = f.mask
-    return DerivedFieldsStacked(values, masks).as_fields()
+                    values[i] = f.values
+                    masks[i] = f.mask
+
+    nplanes = 12 if not fused else 2 if all_defined else 9
+    return _member_stack((tk, q, u, v, ps), tuple(tk.values.shape[1:]),
+                         nplanes, fill)
 
 
 @span("ensemble.reduce")

@@ -145,6 +145,20 @@ def derived_fields(tk: Field, q: Field, u: Field, v: Field, ps: Field,
         tfp=thermal_front_parameter(tk, xm, ym))
 
 
+def _isobaric_surfaces(plevels, ny: int, nx: int, dev) -> tuple:
+    """The constant-pressure surfaces ``plevels`` in the hybrid law ``p =
+    alevel + blevel * ps``: ``(alevel, blevel, ps)`` with ``alevel`` the
+    targets, ``blevel`` 0 and a zero ``(ny, nx)`` ``ps``, all defined."""
+    ps = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
+               torch.ones((ny, nx), dtype=torch.bool, device=dev))
+    # staged from pageable memory before .to returns: no wait for the
+    # stream, so the host keeps enqueueing ahead of the card
+    alevel = torch.tensor(plevels, dtype=torch.float32).to(
+        dev, non_blocking=True)
+    return alevel, torch.zeros(len(plevels), dtype=torch.float32,
+                               device=dev), ps
+
+
 @span("isobaric.step", count_allocs=True)
 def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
                             ps: Field, alevel, blevel, xmapr, ymapr,
@@ -155,24 +169,25 @@ def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
     """The 3-D vertical pipeline (BASELINE config 4): interpolate the
     prognostic fields from hybrid model levels to isobaric surfaces
     (log-p linear, mask-aware), then run the 12-output derived-field
-    suite on the interpolated stack.
+    suite on the interpolated stack, with ``alevel = plevels``, ``blevel =
+    0`` and a zero, all-defined surface pressure, which is the
+    constant-pressure surfaces in the pipeline's hybrid law.
 
     ``fused=True`` runs both stages through the CUDA kernels (the plain
     versions on CPU tensors): the column interpolation
     (:func:`..ops.vertical_fused.hlevel_to_plevel_fused`, with
     ``all_defined`` passed through), then the pipeline kernel
-    (:func:`..ops.fused.derived_fields_fused`) with ``alevel = plevels``,
-    ``blevel = 0`` and a zero, all-defined surface pressure, which is the
-    constant-pressure surfaces in the kernel's hybrid law.  ``stacked``
-    selects its output layout.  ``all_defined`` asserts every input point
-    is defined; the interpolated masks stay data-dependent (targets below
-    the surface or above the top), so the pipeline kernel keeps its masks.
+    (:func:`..ops.fused.derived_fields_fused`).  ``stacked`` selects its
+    output layout.  ``all_defined`` asserts every input point is defined;
+    the interpolated masks stay data-dependent (targets below the surface
+    or above the top), so the pipeline kernel keeps its masks.
 
     ``fused=False`` is the plain composition: :func:`..ops.vertical.
-    hlevel_to_plevel` per field, then the operators with a constant,
-    all-defined pressure per surface.  ``global_shape`` (the TPU's padded
-    layout) is not ported."""
+    hlevel_to_plevel` per field, then :func:`derived_fields`.
+    ``global_shape`` (the TPU's padded layout) is not ported."""
     from ..ops import hlevel_to_plevel
+    from ..ops.fused import derived_fields_fused
+    from ..ops.vertical_fused import hlevel_to_plevel_fused
 
     if (global_shape is not None or stacked or all_defined) and not fused:
         raise ValueError("derived_fields_isobaric: global_shape/stacked/"
@@ -183,51 +198,20 @@ def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
                          "the padded layout (global_shape)")
     dev = tk.values.device
     plevels = tuple(float(t) for t in plevels)
-    np_ = len(plevels)
     a = torch.as_tensor(alevel, dtype=torch.float32, device=dev)
     b = torch.as_tensor(blevel, dtype=torch.float32, device=dev)
     if fused:
-        from ..ops.fused import derived_fields_fused
-        from ..ops.vertical_fused import hlevel_to_plevel_fused
         tki, qi, ui, vi = hlevel_to_plevel_fused(
             (tk, q, u, v), ps, a, b, plevels, all_defined=all_defined)
-        ny, nx = tki.values.shape[-2:]
-        ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
-                    torch.ones((ny, nx), dtype=torch.bool, device=dev))
-        # staged from pageable memory before .to returns: no wait for the
-        # stream, so the host keeps enqueueing ahead of the card
-        plev = torch.tensor(plevels, dtype=torch.float32).to(
-            dev, non_blocking=True)
-        return derived_fields_fused(
-            tki, qi, ui, vi, ps1, plev,
-            torch.zeros(np_, dtype=torch.float32, device=dev),
-            xmapr, ymapr, fcoriolis, stacked=stacked)
-    tki, qi, ui, vi = (hlevel_to_plevel(f, ps, a, b, plevels)
-                       for f in (tk, q, u, v))
-    # constant-pressure "field" per target level; defined everywhere
-    pvals = torch.tensor(plevels, dtype=torch.float32,
-                         device=dev).reshape(np_, 1, 1)
-    p = Field(pvals.expand(tki.values.shape),
-              torch.ones(tki.values.shape, dtype=torch.bool, device=dev))
-
-    def bcast(arr):
-        arr = torch.as_tensor(arr, dtype=torch.float32, device=dev)
-        return arr.expand(tki.values.shape) if arr.dim() == 2 else arr
-
-    xm, ym = bcast(xmapr), bcast(ymapr)
-    return DerivedFields(
-        p=p,
-        th=aleveltemp(tki, p, compute=3),
-        rh=alevelhum(tki, qi, p, compute=1),
-        td=alevelhum(tki, qi, p, compute=9),
-        thetae=alevelthe(tki, qi, p, compute=1),
-        ducting=alevelducting(tki, qi, p, compute=1),
-        wspeed=vectorabs(ui, vi),
-        vort=relvort(ui, vi, xm, ym),
-        div=divergence(ui, vi, xm, ym),
-        tadv=advection(tki, ui, vi, xm, ym, hours=1.0),
-        gradt=gradient(tki, xm, ym, compute=3),
-        tfp=thermal_front_parameter(tki, xm, ym))
+    else:
+        tki, qi, ui, vi = (hlevel_to_plevel(f, ps, a, b, plevels)
+                           for f in (tk, q, u, v))
+    pa, pb, ps0 = _isobaric_surfaces(plevels, *tki.values.shape[-2:], dev)
+    if fused:
+        return derived_fields_fused(tki, qi, ui, vi, ps0, pa, pb, xmapr,
+                                    ymapr, fcoriolis, stacked=stacked)
+    return derived_fields(tki, qi, ui, vi, ps0, pa, pb, xmapr, ymapr,
+                          fcoriolis)
 
 
 def derived_fields_plevel(tk: Field, rh: Field, u: Field, v: Field,

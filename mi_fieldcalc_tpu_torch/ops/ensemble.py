@@ -14,7 +14,6 @@ from typing import Optional, Sequence
 import torch
 
 from ..field import Field, ValuesDefined, f32
-from ..utils.profiling import span
 from ._harness import bool_vector, out_field, require
 from .stencil import _SHARD_CTX, shard_all_reduce
 
@@ -70,7 +69,6 @@ def _defined_count(s: Field):
     return some, torch.where(some, n, 1).to(torch.float32)
 
 
-@span("ensemble.mean")
 def mean_value(members, member_defined=None) -> Field:
     """Pointwise mean over the defined members; the divisor is the
     per-point defined count (FieldCalculations.cc:2696-2724)."""
@@ -79,7 +77,6 @@ def mean_value(members, member_defined=None) -> Field:
     return out_field(_masked_sum(s, s.values) / nf, some)
 
 
-@span("ensemble.spread")
 def stddev_value(members, member_defined=None) -> Field:
     """Pointwise population standard deviation over the defined members
     (FieldCalculations.cc:2726-2757), in the JAX package's two-pass form
@@ -118,7 +115,6 @@ def extreme_value(compute: int, members) -> Field:
     return Field(idx, torch.ones_like(cur_def))
 
 
-@span("ensemble.probability")
 def probability(compute: int, members, limits: Sequence[float],
                 member_defined: Optional[Sequence[ValuesDefined]] = None,
                 member_defined_mask=None) -> Field:

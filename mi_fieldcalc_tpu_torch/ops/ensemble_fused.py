@@ -18,11 +18,11 @@ their count, as :func:`.ensemble.probability` does.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import _build
 from ..field import Field, f32
 from ..utils.profiling import span
 from ._harness import check_tensor, out_field
@@ -80,9 +80,12 @@ ensemble_stats_fused.launches = 0
 ensemble_stats_fused.prob_launches = 0
 
 
-def _launch(field: Field, limit, compute) -> EnsembleStats:
-    from .._build import load_library
-
+def _launch_args(field: Field, limit, compute) -> tuple:
+    """The launches' checks, outputs and arguments, on any device:
+    ``(outputs, stats args, prob args)``, the arguments those of
+    ``mf_ensemble_stats`` and, with a limit, ``mf_ensemble_prob`` (else
+    None) but the stream, tensors for pointers; the two share the member
+    flags ``seen``."""
     name = "ensemble_stats_fused"
     values, mask = field.values, field.mask
     dev = values.device
@@ -102,29 +105,24 @@ def _launch(field: Field, limit, compute) -> EnsembleStats:
         prob = torch.empty(out_shape, dtype=torch.float32, device=dev)
         seen = torch.empty(nmem, dtype=torch.int32, device=dev)
         prob_some = torch.empty((), dtype=torch.bool, device=dev)
-    lib = load_library()
+    out = EnsembleStats(out_field(mean, some), out_field(spread, some),
+                        None if prob is None else out_field(prob, prob_some))
+    stats = (values, mask, mean, spread, some, prob, seen, nmem, npts,
+             compute or 0, 0.0 if compute is None else f32(limit))
+    return out, stats, (None if prob is None
+                        else (prob, prob_some, seen, nmem, npts))
 
-    def ptr(t):
-        return None if t is None else ctypes.c_void_p(t.data_ptr())
 
-    def check(err: int) -> None:
-        if err != 0:
-            raise RuntimeError(f"{name}: kernel launch failed: "
-                               f"{lib.mf_error_string(err).decode()}")
-
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        ensemble_stats_fused.launches += 1
-        with span("ensemble.stats", dev):
-            check(lib.mf_ensemble_stats(
-                ptr(values), ptr(mask), ptr(mean), ptr(spread), ptr(some),
-                ptr(prob), ptr(seen), nmem, npts, compute or 0,
-                f32(limit) if compute is not None else 0.0, stream))
-            if compute is not None:
-                shard_all_reduce(seen, "max")     # a no-op off a shard
-                ensemble_stats_fused.prob_launches += 1
-                check(lib.mf_ensemble_prob(ptr(prob), ptr(prob_some),
-                                           ptr(seen), nmem, npts, stream))
-    return EnsembleStats(
-        out_field(mean, some), out_field(spread, some),
-        None if prob is None else out_field(prob, prob_some))
+def _launch(field: Field, limit, compute) -> EnsembleStats:
+    name = "ensemble_stats_fused"
+    dev = field.values.device
+    out, stats, prob = _launch_args(field, limit, compute)
+    ensemble_stats_fused.launches += 1
+    with span("ensemble.stats", dev):
+        _build.call(name, "mf_ensemble_stats", dev, *stats)
+        if prob is not None:
+            # the member flags ``seen``; a no-op off a shard
+            shard_all_reduce(prob[2], "max")
+            ensemble_stats_fused.prob_launches += 1
+            _build.call(name, "mf_ensemble_prob", dev, *prob)
+    return out

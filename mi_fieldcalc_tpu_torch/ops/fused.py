@@ -20,12 +20,11 @@ grid's.
 
 from __future__ import annotations
 
-import ctypes
+import operator
 
 import torch
 
-import operator
-
+from .. import _build
 from ..field import Field
 from ..models.pipeline import DerivedFieldsStacked, derived_fields
 from ..utils.profiling import span
@@ -212,14 +211,15 @@ def _out_stride(out_values, out_masks, shape: tuple, all_defined: bool,
     return stride
 
 
-def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
-            all_defined: bool, placement: tuple = None, out_values=None,
-            out_masks=None) -> DerivedFieldsStacked:
-    """One launch; ``placement`` is :func:`_placement`'s ``(row0, col0,
-    nyg, nxg)``, the whole grid when ``None``; the outputs land in
-    ``out_values`` / ``out_masks`` where given (:func:`_out_stride`)."""
-    from .._build import load_library
-
+def _launch_args(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
+                 all_defined: bool, placement: tuple = None,
+                 out_values=None, out_masks=None) -> tuple:
+    """One launch's checks, outputs and arguments, on any device:
+    ``(outputs, args)``, ``args`` those of ``mf_derived_fields`` but the
+    stream, tensors for pointers.  ``placement`` is :func:`_placement`'s
+    ``(row0, col0, nyg, nxg)``, the whole grid when ``None``; the outputs
+    land in ``out_values`` / ``out_masks`` where given
+    (:func:`_out_stride`)."""
     dev = tk.values.device
     if tk.values.dim() != 3:
         raise ValueError("derived_fields_fused: tk must be [nlev, ny, nx]")
@@ -250,25 +250,24 @@ def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
         values = torch.empty((12, nlev, ny, nx), dtype=f32, device=dev)
         masks = torch.empty((2 if all_defined else 9, nlev, ny, nx),
                             dtype=b8, device=dev)
-    lib = load_library()
 
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
+    def mask(f):
+        return None if all_defined else f.mask
 
-    def mptr(f):
-        return None if all_defined else ptr(f.mask)
+    return DerivedFieldsStacked(values=values, masks=masks), (
+        tk.values, q.values, u.values, v.values, mask(tk), mask(q), mask(u),
+        mask(v), ps.values, mask(ps), alevel, blevel, xmapr, ymapr, values,
+        masks, nlev, ny, nx, *placement, int(all_defined), stride)
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        derived_fields_fused.launches += 1
-        with span("b1.kernel", dev):
-            err = lib.mf_derived_fields(
-                ptr(tk.values), ptr(q.values), ptr(u.values), ptr(v.values),
-                mptr(tk), mptr(q), mptr(u), mptr(v), ptr(ps.values),
-                mptr(ps), ptr(alevel), ptr(blevel), ptr(xmapr), ptr(ymapr),
-                ptr(values), ptr(masks), nlev, ny, nx, *placement,
-                int(all_defined), stride, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"derived_fields_fused: kernel launch failed: "
-                           f"{lib.mf_error_string(err).decode()}")
-    return DerivedFieldsStacked(values=values, masks=masks)
+
+def _launch(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
+            all_defined: bool, placement: tuple = None, out_values=None,
+            out_masks=None) -> DerivedFieldsStacked:
+    """One launch, as :func:`_launch_args` sets it up."""
+    dev = tk.values.device
+    out, args = _launch_args(tk, q, u, v, ps, alevel, blevel, xmapr, ymapr,
+                             all_defined, placement, out_values, out_masks)
+    derived_fields_fused.launches += 1
+    with span("b1.kernel", dev):
+        _build.call("derived_fields_fused", "mf_derived_fields", dev, *args)
+    return out

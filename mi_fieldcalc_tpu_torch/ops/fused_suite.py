@@ -33,6 +33,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..field import Field, from_arrays
 from ._harness import and_masks, check_tensor, not_ported, require
 from .levels import (
@@ -363,12 +364,13 @@ def hlevel_suite_fused(t: Field, q: Optional[Field], rh: Optional[Field],
 hlevel_suite_fused.launches = 0
 
 
-def _launch(hybrid: bool, t, q, rh, p, alevel, blevel, reqs,
-            all_defined: bool) -> SuiteStacked:
-    from .._build import load_library
-
-    entry = hlevel_suite_fused if hybrid else alevel_suite_fused
-    name = entry.__name__
+def _launch_args(hybrid: bool, t, q, rh, p, alevel, blevel, reqs,
+                 all_defined: bool) -> tuple:
+    """One launch's checks, outputs and arguments, on any device:
+    ``(outputs, args)``, ``args`` those of ``mf_hlevel_suite``
+    (``hybrid``) or ``mf_alevel_suite`` but the stream, tensors for
+    pointers."""
+    name = "hlevel_suite_fused" if hybrid else "alevel_suite_fused"
     if len(reqs) > _MAX_REQ:
         raise ValueError(f"{name}: the kernel takes at most {_MAX_REQ} "
                          f"requests, got {len(reqs)}")
@@ -377,21 +379,22 @@ def _launch(hybrid: bool, t, q, rh, p, alevel, blevel, reqs,
     f32, b8 = torch.float32, torch.bool
     shape3 = (nlev, ny, nx)
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
     def field(arg, f, shape):
         if f is None:
             return None, None
         check_tensor(name, f.values, arg, shape, f32, dev)
         if all_defined:
-            return ptr(f.values), None
+            return f.values, None
         check_tensor(name, f.mask, arg + ".mask", shape, b8, dev)
-        return ptr(f.values), ptr(f.mask)
+        return f.values, f.mask
 
     tv, tm = field("t", t, shape3)
     qv, qm = field("q", q, shape3)
     rv, rm = field("rh", rh, shape3)
+    pv, pm = field("ps", p, (ny, nx)) if hybrid else field("p", p, shape3)
+    if hybrid:
+        for arg, a in (("alevel", alevel), ("blevel", blevel)):
+            check_tensor(name, a, arg, (nlev,), f32, dev)
     mmap = _mask_map(reqs, all_defined)
     kinds = _gate_planes(reqs)
     nplanes = len(kinds) if all_defined else len(reqs)
@@ -403,29 +406,25 @@ def _launch(hybrid: bool, t, q, rh, p, alevel, blevel, reqs,
     for i, k in enumerate(kinds):
         gates[_GATE_SLOT[k]] = i
     cgates = (ctypes.c_int * 3)(*gates)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if hybrid:
-            pv, pm = field("ps", p, (ny, nx))
-            for arg, a in (("alevel", alevel), ("blevel", blevel)):
-                check_tensor(name, a, arg, (nlev,), f32, dev)
-            entry.launches += 1
-            err = lib.mf_hlevel_suite(
-                tv, qv, rv, tm, qm, rm, pv, pm, ptr(alevel), ptr(blevel),
-                creqs, len(reqs), cgates, ptr(values), ptr(masks), nlev, ny,
-                nx, int(all_defined), stream)
-        else:
-            pv, pm = field("p", p, shape3)
-            entry.launches += 1
-            err = lib.mf_alevel_suite(
-                tv, qv, rv, pv, tm, qm, rm, pm, creqs, len(reqs), cgates,
-                ptr(values), ptr(masks), nlev, ny, nx, int(all_defined),
-                stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.mf_error_string(err).decode()}")
-    return SuiteStacked(values, masks, mmap)
+    tail = (creqs, len(reqs), cgates, values, masks, nlev, ny, nx,
+            int(all_defined))
+    if hybrid:
+        args = (tv, qv, rv, tm, qm, rm, pv, pm, alevel, blevel, *tail)
+    else:
+        args = (tv, qv, rv, pv, tm, qm, rm, pm, *tail)
+    return SuiteStacked(values, masks, mmap), args
+
+
+def _launch(hybrid: bool, t, q, rh, p, alevel, blevel, reqs,
+            all_defined: bool) -> SuiteStacked:
+    """One launch, as :func:`_launch_args` sets it up."""
+    entry = hlevel_suite_fused if hybrid else alevel_suite_fused
+    out, args = _launch_args(hybrid, t, q, rh, p, alevel, blevel, reqs,
+                             all_defined)
+    entry.launches += 1
+    _build.call(entry.__name__, "mf_hlevel_suite" if hybrid
+                else "mf_alevel_suite", t.values.device, *args)
+    return out
 
 
 def suite_inputs_from_numpy(args, device=None) -> tuple:

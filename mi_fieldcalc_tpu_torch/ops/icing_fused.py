@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from .. import _build
 from ..field import Field
 from ._harness import (
     check_tensor, not_ported, out_field, require,
@@ -253,9 +254,12 @@ def _decay_tensor(decay, dev: torch.device) -> torch.Tensor:
     return t
 
 
-def _launch_tensors(name: str, names, planes: dict, flags: tuple, decay):
-    """A launch's checks and tensors: ``(out, decay tensor)``, the table
-    None where nothing is launched (an empty grid or meta tensors)."""
+def _launch_args(name: str, names, planes: dict, flags: tuple, decay,
+                 vsca: float, alt: Optional[int]) -> tuple:
+    """A launch's checks, output and arguments on any device: ``(out,
+    args)``, ``args`` those of ``mf_vessel_icing_mincog`` (``alt`` given)
+    or ``mf_vessel_icing_modstall`` but the stream, tensors for pointers,
+    or None where nothing is launched (an empty grid or meta tensors)."""
     gate = flags[0]
     dev = gate.device
     shape = tuple(gate.shape)
@@ -270,34 +274,23 @@ def _launch_tensors(name: str, names, planes: dict, flags: tuple, decay):
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if n == 0 or dev.type == "meta":
         return out, None
-    return out, _decay_tensor(decay, dev)
+    ptrs = (ctypes.c_void_p * len(names))(
+        *[planes[k].data_ptr() for k in names])
+    dec = _decay_tensor(decay, dev)
+    if alt is None:
+        return out, (ptrs, gate, flags[1], dec, len(decay), vsca, out, n)
+    return out, (ptrs, gate, flags[1], flags[2], dec, len(decay), vsca,
+                 int(alt), out, n)
 
 
 def _launch(entry, names, planes: dict, flags: tuple, decay, vsca: float,
             alt: Optional[int]) -> torch.Tensor:
     """One launch of B5 (``alt`` given) or B6 on the planes' device."""
-    from .._build import load_library
-
-    out, dec = _launch_tensors(entry.__name__, names, planes, flags, decay)
-    if dec is None:
+    out, args = _launch_args(entry.__name__, names, planes, flags, decay,
+                             vsca, alt)
+    if args is None:
         return out               # an empty grid or meta: nothing to launch
-    gate, dev, n = flags[0], out.device, out.numel()
-    ptrs = (ctypes.c_void_p * len(names))(
-        *[planes[k].data_ptr() for k in names])
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        entry.launches += 1
-        if alt is not None:
-            err = lib.mf_vessel_icing_mincog(
-                ptrs, gate.data_ptr(), flags[1].data_ptr(),
-                flags[2].data_ptr(), dec.data_ptr(), len(decay), vsca,
-                int(alt), out.data_ptr(), n, stream)
-        else:
-            err = lib.mf_vessel_icing_modstall(
-                ptrs, gate.data_ptr(), flags[1].data_ptr(), dec.data_ptr(),
-                len(decay), vsca, out.data_ptr(), n, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry.__name__}: kernel launch failed: "
-                           f"{lib.mf_error_string(err).decode()}")
+    entry.launches += 1
+    _build.call(entry.__name__, "mf_vessel_icing_modstall" if alt is None
+                else "mf_vessel_icing_mincog", out.device, *args)
     return out

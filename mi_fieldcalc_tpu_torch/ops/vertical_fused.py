@@ -32,6 +32,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .. import _build
 from .._libm import log_f32
 from ..field import Field
 from ..utils.profiling import span
@@ -169,10 +170,11 @@ def hlevel_to_plevel_fused(fields: Tuple[Field, ...], ps: Field,
 hlevel_to_plevel_fused.launches = 0
 
 
-def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
-            all_defined: bool) -> Tuple[Field, ...]:
-    from .._build import load_library
-
+def _launch_args(fields, ps, alevel, blevel, targets, log_p: bool,
+                 all_defined: bool) -> tuple:
+    """One call's checks, outputs and arguments, on any device:
+    ``(outputs, args)``, ``args`` those of ``mf_vertical_interp`` up to its
+    stream, tensors for pointers."""
     name = "hlevel_to_plevel_fused"
     dev = ps.values.device
     nvar = len(fields)
@@ -200,25 +202,28 @@ def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
     values = torch.empty((nvar, nt, ny, nx), dtype=f32, device=dev)
     masks = torch.empty((1 if all_defined else nvar, nt, ny, nx), dtype=b8,
                         device=dev)
-    lib = load_library()
     vp = (ctypes.c_void_p * nvar)(*[f.values.data_ptr() for f in fields])
     mp = (ctypes.c_void_p * nvar)(
         *[None if all_defined else f.mask.data_ptr() for f in fields])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launched = ctypes.c_int(0)
+    out = tuple(Field(values[v], masks[0 if all_defined else v])
+                for v in range(nvar))
+    return out, (vp, mp, nvar, ps.values, None if all_defined else ps.mask,
+                 alevel, blevel, tgt, nt, values, masks, nlev, ny, nx,
+                 int(log_p), int(all_defined))
+
+
+def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
+            all_defined: bool) -> Tuple[Field, ...]:
+    """One call, as :func:`_launch_args` sets it up: one launch for each
+    group of up to 31 fields, each counted."""
+    out, args = _launch_args(fields, ps, alevel, blevel, targets, log_p,
+                             all_defined)
+    dev = ps.values.device
+    launched = ctypes.c_int(0)
+    try:
         with span("b2.kernel", dev):
-            err = lib.mf_vertical_interp(
-                vp, mp, nvar, ps.values.data_ptr(),
-                None if all_defined else ps.mask.data_ptr(),
-                alevel.data_ptr(), blevel.data_ptr(), tgt.data_ptr(), nt,
-                values.data_ptr(), masks.data_ptr(), nlev, ny, nx,
-                int(log_p), int(all_defined), ctypes.c_void_p(stream),
-                ctypes.byref(launched))
+            _build.call("hlevel_to_plevel_fused", "mf_vertical_interp", dev,
+                        *args, ctypes.byref(launched))
+    finally:        # the groups launched before a refused one count too
         hlevel_to_plevel_fused.launches += launched.value
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.mf_error_string(err).decode()}")
-    if all_defined:
-        return tuple(Field(values[v], masks[0]) for v in range(nvar))
-    return tuple(Field(values[v], masks[v]) for v in range(nvar))
+    return out

@@ -25,8 +25,10 @@ from __future__ import annotations
 import torch
 
 from ..field import Field
-from ..models.ensemble import EnsembleSummary, ensemble_summary
-from ..models.pipeline import RADIUS, DerivedFields, DerivedFieldsStacked
+from ..models.ensemble import EnsembleSummary, _member_stack, \
+    ensemble_summary
+from ..models.pipeline import RADIUS, DerivedFieldsStacked, \
+    _isobaric_surfaces
 from ..ops._harness import require
 from ..ops.fused import derived_fields_fused
 from ..ops.stencil import ShardCtx, shard_context
@@ -267,16 +269,9 @@ def derived_fields_isobaric_sharded(grid: ProcessGrid, tk: Field, q: Field,
     b = torch.as_tensor(blevel, dtype=torch.float32, device=dev)
     interp = hlevel_to_plevel_fused((tk, q, u, v), ps, a, b, plevels,
                                     all_defined=all_defined)
-    ny, nx = tk.values.shape[-2:]
-    # constant-pressure surfaces: alevel = plevels, blevel = 0, ps = 0
-    # defined everywhere (models/pipeline.py derived_fields_isobaric)
-    ps1 = Field(torch.zeros((ny, nx), dtype=torch.float32, device=dev),
-                torch.ones((ny, nx), dtype=torch.bool, device=dev))
+    pa, pb, ps0 = _isobaric_surfaces(plevels, *tk.values.shape[-2:], dev)
     core = _overlap_core if overlap else _halo_core
-    st = core(grid, [*interp, ps1],
-              torch.tensor(plevels, dtype=torch.float32, device=dev),
-              torch.zeros(len(plevels), dtype=torch.float32, device=dev),
-              xm, ym, False, placement)
+    st = core(grid, [*interp, ps0], pa, pb, xm, ym, False, placement)
     return st.as_fields()
 
 
@@ -310,19 +305,14 @@ def ensemble_summary_sharded(grid: ProcessGrid, tk: Field, q: Field,
     fields = [tk, q, u, v, ps]
     padded = _exchange(_flat(fields, xm, ym, all_defined), grid)
     pf, pxm, pym = _unflat(padded, len(fields), all_defined)
-    nmem = tk.values.shape[0]
     shape = tuple(tk.values.shape[1:])
-    values = torch.empty((12, nmem) + shape, dtype=torch.float32, device=dev)
-    masks = torch.empty((12, nmem) + shape, dtype=torch.bool, device=dev)
-    for m in range(nmem):
-        member = [Field(f.values[m], None if all_defined else f.mask[m])
-                  for f in pf]
+
+    def fill(member, values, masks):
         st = _crop(_b1(member, al, bl, pxm, pym, all_defined, r0 - RADIUS,
                        c0 - RADIUS, nyg, nxg, RADIUS), *shape[-2:])
-        values[:, m] = st.values
-        for i in range(12):
-            masks[i, m] = DerivedFieldsStacked.mask_plane(st.masks, i,
-                                                          st.values[i])
-    out = DerivedFields(*[Field(values[i], masks[i]) for i in range(12)])
+        values.copy_(st.values)
+        masks.copy_(st.masks)
+
+    out = _member_stack(pf, shape, 2 if all_defined else 9, fill)
     with shard_context(ShardCtx(r0, c0, nyg, nxg, grid.group)):
         return ensemble_summary(out, wind_limit)

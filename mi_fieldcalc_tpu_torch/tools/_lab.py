@@ -1,21 +1,16 @@
-"""What the four labs share: the kernel call through the library, the
-device dispatch of a wrapper, timing on the device the lab runs on, and
+"""What the four labs share (they launch through :func:`.._build.call`):
+the device dispatch of a wrapper, timing on the device the lab runs on, and
 the command line."""
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import statistics
 import time
 
 import torch
 
 from ..utils.profiling import event_times_ms
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def route(fn: str, t: torch.Tensor) -> bool:
@@ -26,19 +21,6 @@ def route(fn: str, t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{fn}: no kernel for {t.device}")
-
-
-def call(fn: str, entry: str, dev: torch.device, *args) -> None:
-    """Launch the library's ``entry`` on ``dev``'s current stream with
-    ``args`` and raise with the CUDA error if the launch was refused."""
-    from .._build import load_library
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn}: kernel launch failed: "
-                           f"{lib.mf_error_string(err).decode()}")
 
 
 def assert_same(got, ref, label: str) -> None:

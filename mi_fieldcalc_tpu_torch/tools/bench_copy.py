@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..field import Field
+from .. import _build
 from ..ops._harness import check_tensor
 from . import _lab
 
@@ -133,16 +134,14 @@ def copy_probe(tk: Field, q: Field, u: Field, v: Field, ps: Field,
     masks = torch.empty((2 if all_defined else 9, nlev, ny, nx), dtype=b8,
                         device=dev)
 
-    def mptr(f):
-        return None if all_defined else _lab.ptr(f.mask)
+    def mask(f):
+        return None if all_defined else f.mask
 
     copy_probe.launches += 1
-    _lab.call("copy_probe", "mf_probe_copy", dev,
-              _lab.ptr(tk.values), _lab.ptr(q.values), _lab.ptr(u.values),
-              _lab.ptr(v.values), mptr(tk), mptr(q), mptr(u), mptr(v),
-              _lab.ptr(ps.values), mptr(ps), _lab.ptr(xmapr),
-              _lab.ptr(ymapr), _lab.ptr(values), _lab.ptr(masks), nlev, ny,
-              nx, int(all_defined), smem)
+    _build.call("copy_probe", "mf_probe_copy", dev, tk.values, q.values,
+                u.values, v.values, mask(tk), mask(q), mask(u), mask(v),
+                ps.values, mask(ps), xmapr, ymapr, values, masks, nlev, ny,
+                nx, int(all_defined), smem)
     return values, masks
 
 

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from .. import _build
 from ..ops._harness import check_tensor
 from . import _lab
 
@@ -63,9 +64,8 @@ def add1(x: torch.Tensor, nbuf: int = 1, ty: int = 48,
     outs = [torch.empty_like(x) for _ in range(nbuf)]
     ptrs = (ctypes.c_void_p * nbuf)(*(o.data_ptr() for o in outs))
     add1.launches += 1
-    _lab.call("add1", "mf_probe_add1", x.device, _lab.ptr(x),
-              ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)), nbuf, ty,
-              threads, *x.shape)
+    _build.call("add1", "mf_probe_add1", x.device, x, ptrs, nbuf, ty,
+                threads, *x.shape)
     return outs
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..ops._harness import check_tensor
 from . import _lab
 
@@ -81,8 +82,8 @@ def window(x: torch.Tensor, y: torch.Tensor, ty: int = TOOL_TY):
     ow = torch.empty(x.shape[:-2] + (jy * (ty + 2 * HALO), nx),
                      dtype=torch.float32, device=x.device)
     window.launches += 1
-    _lab.call("window", "mf_probe_window", x.device, _lab.ptr(x),
-              _lab.ptr(y), _lab.ptr(o), _lab.ptr(ow), ty, nlev, ny, nx)
+    _build.call("window", "mf_probe_window", x.device, x, y, o, ow, ty,
+                nlev, ny, nx)
     return o, ow
 
 

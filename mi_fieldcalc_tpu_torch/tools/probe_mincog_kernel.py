@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .._libm import tanh_f32
+from .. import _build
 from ..ops._harness import check_tensor
 from . import _lab
 
@@ -153,8 +154,8 @@ def solver(c0: torch.Tensor, a: torch.Tensor,
     out = torch.empty_like(c0)
     work = _workspace(dev)
     solver.launches += 1
-    _lab.call("solver", "mf_probe_solver", dev, _lab.ptr(c0), _lab.ptr(a),
-              _lab.ptr(decay), _lab.ptr(out), _lab.ptr(work), c0.numel())
+    _build.call("solver", "mf_probe_solver", dev, c0, a, decay, out, work,
+                c0.numel())
     return out
 
 

@@ -36,6 +36,8 @@ from pathlib import Path
 
 import pytest
 
+from mi_fieldcalc_tpu_torch import _build
+
 CSRC = Path(__file__).resolve().parent.parent / "mi_fieldcalc_tpu_torch" \
     / "csrc"
 
@@ -166,7 +168,8 @@ def host_library(tmp_path_factory, source: str, launches: int,
                  extra_sources=()) -> ctypes.CDLL:
     """``csrc/<source>`` compiled for the host, its ``launches`` kernel
     launches turned into host loops, with ``extra_sources`` (name, C++
-    text) pairs compiled beside it in one shared library.  Skips without
+    text) pairs compiled beside it in one shared library, its entries
+    declared as the package's library declares them.  Skips without
     g++."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -190,4 +193,10 @@ def host_library(tmp_path_factory, source: str, launches: int,
          "-fPIC", "-shared", "-I", str(d), *map(str, files), "-o", str(so)],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    return ctypes.CDLL(str(so))
+    return _build._declare(ctypes.CDLL(str(so)))
+
+
+def run(lib, entry: str, args) -> int:
+    """``entry`` of a host library on a wrapper's launch arguments
+    (``_launch_args``: all but the stream), with no stream; its error."""
+    return getattr(lib, entry)(*_build._c_args(entry, tuple(args)))

@@ -559,9 +559,9 @@ def _kernels_as_on_cuda(monkeypatch):
     from mi_fieldcalc_tpu_torch.ops import icing_fused as F
 
     def launch(entry, names, planes, flags, decay, vsca, alt):
-        out, dec = F._launch_tensors(entry.__name__, names, planes, flags,
-                                     decay)
-        if dec is None:
+        out, args = F._launch_args(entry.__name__, names, planes, flags,
+                                   decay, vsca, alt)
+        if args is None:
             return out           # an empty grid or meta: nothing to launch
         with _disable_current_modes():
             if alt is None:

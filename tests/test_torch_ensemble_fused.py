@@ -12,7 +12,6 @@ card's and the host's ``sqrtf`` are), so the plain version runs with a
 correctly rounded one there.  The ``cuda`` tests hold the kernel on the card
 to the plain version on the card."""
 
-import ctypes
 import re
 
 import numpy as np
@@ -20,9 +19,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from cuda_host import CSRC, host_library
+from cuda_host import CSRC, host_library, run
 from mi_fieldcalc_tpu_torch.field import Field, f32
-from mi_fieldcalc_tpu_torch.ops import probability
+from mi_fieldcalc_tpu_torch.ops import ensemble_fused, probability
 from mi_fieldcalc_tpu_torch.ops import mean_value, stddev_value
 from mi_fieldcalc_tpu_torch.ops.ensemble_fused import (
     EnsembleStats, ensemble_stats_fused, ensemble_stats_plain)
@@ -139,13 +138,7 @@ def test_every_launch_returns_cudaGetLastError():
 # ------------------------------------------------ the source, on the host
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "ensemble_stats.cu", 2)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mf_ensemble_stats.argtypes = [p] * 7 + [i, ctypes.c_int64, i,
-                                                ctypes.c_float, p]
-    lib.mf_ensemble_prob.argtypes = [p] * 3 + [i, ctypes.c_int64, p]
-    lib.mf_ensemble_stats.restype = lib.mf_ensemble_prob.restype = i
-    return lib
+    return host_library(tmp_path_factory, "ensemble_stats.cu", 2)
 
 
 @pytest.fixture
@@ -156,27 +149,23 @@ def exact_sqrt(monkeypatch):
 
 
 def _host_stats(lib, f: Field, limit, compute):
-    """The kernels' C entries on host memory, as the wrapper calls them
-    (one member-flag buffer, the epilogue after the stats)."""
-    nmem, shape = f.values.shape[0], tuple(f.values.shape[1:])
-    npts = f.values.numel() // nmem
-    mean, spread, prob = (torch.full(shape, -7.0) for _ in range(3))
-    some = torch.zeros(shape, dtype=torch.bool)
-    seen = torch.full((nmem,), 5, dtype=torch.int32)
-    prob_some = torch.zeros((), dtype=torch.bool)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    assert lib.mf_ensemble_stats(
-        ptr(f.values), ptr(f.mask), ptr(mean), ptr(spread), ptr(some),
-        ptr(prob) if compute else None, ptr(seen) if compute else None,
-        nmem, npts, compute or 0, f32(limit) if compute else 0.0, None) == 0
-    if not compute:
+    """The kernels' C entries on host memory, on the arguments the wrapper
+    launches with (``ensemble_fused._launch_args``: one member-flag buffer,
+    the epilogue after the stats), its outputs and flags first filled with
+    sentinels."""
+    _, stats, prob = ensemble_fused._launch_args(f, limit, compute)
+    mean, spread, some, _, seen = stats[2:7]
+    for t, v in ((mean, -7.0), (spread, -7.0), (some, False)):
+        t.fill_(v)
+    if prob is None:
+        assert run(lib, "mf_ensemble_stats", stats) == 0
         return mean, spread, some, None, None
-    assert lib.mf_ensemble_prob(ptr(prob), ptr(prob_some), ptr(seen), nmem,
-                                npts, None) == 0
-    return mean, spread, some, prob, prob_some
+    prob[0].fill_(-7.0)
+    prob[1].fill_(False)
+    seen.fill_(5)
+    assert run(lib, "mf_ensemble_stats", stats) == 0
+    assert run(lib, "mf_ensemble_prob", prob) == 0
+    return mean, spread, some, prob[0], prob[1]
 
 
 def _in_member_order(f: Field):
@@ -259,18 +248,12 @@ def test_the_kernel_source_with_no_member_defined(host_lib):
 
 def test_the_entries_refuse_what_the_kernel_does_not_take(host_lib):
     x = torch.zeros(4)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    args = [ptr(x)] * 5
     for nmem, npts, compute, count in ((0, 4, 0, None), (1, -1, 0, None),
-                                       (1, 4, 3, ptr(x)), (1, 4, 1, None),
-                                       (1025, 4, 1, ptr(x))):
-        assert host_lib.mf_ensemble_stats(*args, count, count, nmem, npts,
-                                          compute, 0.0, None) != 0
-    assert host_lib.mf_ensemble_prob(ptr(x), ptr(x), ptr(x), 0, 4,
-                                     None) != 0
+                                       (1, 4, 3, x), (1, 4, 1, None),
+                                       (1025, 4, 1, x)):
+        assert run(host_lib, "mf_ensemble_stats", (x,) * 5 + (
+            count, count, nmem, npts, compute, 0.0)) != 0
+    assert run(host_lib, "mf_ensemble_prob", (x, x, x, 0, 4)) != 0
 
 
 # ------------------------------------------------------------- on the card
@@ -356,9 +339,8 @@ def test_a_refused_launch_raises(monkeypatch):
     dev = _cuda()
     lib = _build.load_library()
     x = torch.zeros(4, device=dev)
-    p = ctypes.c_void_p(x.data_ptr())
-    assert lib.mf_ensemble_stats(p, p, p, p, p, None, None, 0, 4, 0, 0.0,
-                                 None) != 0
+    assert run(lib, "mf_ensemble_stats",
+               (x,) * 5 + (None, None, 0, 4, 0, 0.0)) != 0
 
     class Refusing:
         mf_error_string = lib.mf_error_string

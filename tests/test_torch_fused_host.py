@@ -15,14 +15,12 @@ and values equal bit for bit at every point, NaN where NaN.  PyTorch's CPU
 ``sqrtf``), so the plain version runs with a correctly rounded one.  The
 card checks the same equality (``chip_smoke.py`` phases 3-5, 7 and 10)."""
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from cuda_host import host_library
+from cuda_host import host_library, run
 from mi_fieldcalc_tpu_torch.field import from_sentinel
 from mi_fieldcalc_tpu_torch.models.pipeline import DerivedFieldsStacked
 from mi_fieldcalc_tpu_torch.ops import fused
@@ -38,11 +36,7 @@ SHAPES = [(1, 3, 3), (3, 37, 61), (2, 5, 929), (2, 33, 135), (1, 4, 5)]
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "derived_fields.cu", 4)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mf_derived_fields.argtypes = [p] * 16 + [i] * 8 + [ctypes.c_int64, p]
-    lib.mf_derived_fields.restype = i
-    return lib
+    return host_library(tmp_path_factory, "derived_fields.cu", 4)
 
 
 @pytest.fixture
@@ -91,7 +85,8 @@ SENTINEL_VALUE, SENTINEL_MASK = -7.25, 3
 class _MemberStack:
     """3-member value and mask stacks filled with sentinels, and the slot
     ``[:, 1]`` a launch writes; the mask stack is bytes, so that the
-    sentinel 3 is neither of the 0 / 1 the kernel writes."""
+    sentinel 3 is neither of the 0 / 1 the kernel writes (the launch takes
+    it as bool, which it only writes)."""
 
     def __init__(self, nplanes: int, shape: tuple):
         self.values = torch.full((12, 3) + shape, SENTINEL_VALUE)
@@ -99,9 +94,8 @@ class _MemberStack:
                                 dtype=torch.uint8)
 
     def slot(self) -> tuple:
-        """``(values, masks, out_plane_stride)`` of member 1."""
-        return (self.values[:, 1], self.masks[:, 1],
-                self.values.stride(0))
+        """``(values, masks)`` of member 1."""
+        return self.values[:, 1], self.masks.view(torch.bool)[:, 1]
 
     def written(self) -> DerivedFieldsStacked:
         """Member 1's planes, after checking that members 0 and 2 still
@@ -115,42 +109,30 @@ class _MemberStack:
 
 
 def _call(lib, f, al, bl, xm, ym, offsets, global_shape, all_defined,
-          values, masks, stride) -> int:
-    """``mf_derived_fields`` as the wrapper (``fused._launch``) calls it;
-    its error code."""
-    tk, q, u, v, ps = f
-
-    def mptr(fl):
-        return None if all_defined else fl.mask.data_ptr()
-
-    return lib.mf_derived_fields(
-        tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
-        v.values.data_ptr(), mptr(tk), mptr(q), mptr(u), mptr(v),
-        ps.values.data_ptr(), mptr(ps), al.data_ptr(), bl.data_ptr(),
-        xm.data_ptr(), ym.data_ptr(), values.data_ptr(), masks.data_ptr(),
-        *tk.values.shape, *offsets, *global_shape, int(all_defined), stride,
-        None)
+          values=None, masks=None, stride=None) -> tuple:
+    """``mf_derived_fields`` on the arguments the wrapper launches with
+    (``fused._launch_args``), into ``values`` / ``masks`` where given, and
+    with ``stride`` in place of their plane stride where given:
+    ``(error code, outputs)``."""
+    out, args = fused._launch_args(*f, al, bl, xm, ym, all_defined,
+                                   (*offsets, *global_shape), values, masks)
+    if stride is not None:
+        args = args[:-1] + (stride,)
+    return run(lib, "mf_derived_fields", args), out
 
 
 def _launch_into(lib, f, al, bl, xm, ym, offsets, global_shape,
                  all_defined, into="dense") -> DerivedFieldsStacked:
     """One host launch of B1, into new dense planes or into member 1 of 3
     (``into``)."""
-    shape = tuple(f[0].values.shape)
-    nplanes = 2 if all_defined else 9
-    if into == "dense":
-        values = torch.empty((12,) + shape, dtype=torch.float32)
-        masks = torch.empty((nplanes,) + shape, dtype=torch.bool)
-        stride = 0
-    else:
-        stack = _MemberStack(nplanes, shape)
-        values, masks, stride = stack.slot()
-    err = _call(lib, f, al, bl, xm, ym, offsets, global_shape, all_defined,
-                values, masks, stride)
+    stack = None
+    if into != "dense":
+        stack = _MemberStack(2 if all_defined else 9,
+                             tuple(f[0].values.shape))
+    err, out = _call(lib, f, al, bl, xm, ym, offsets, global_shape,
+                     all_defined, *(stack.slot() if stack else ()))
     assert err == 0
-    if into == "dense":
-        return DerivedFieldsStacked(values, masks)
-    return stack.written()
+    return stack.written() if stack else out
 
 
 def _host_fused(lib, args, all_defined, into="dense") -> DerivedFieldsStacked:
@@ -198,20 +180,13 @@ def test_host_fused_writes_only_its_planes(host_lib, exact_sqrt):
     raw = _inputs(*shape, seed=7, undefs=True)
     args = _args(raw, False)
     ref = fused.derived_fields_plain(*args)
-    tk, q, u, v, ps, al, bl, xm, ym, _ = args
     n = int(np.prod(shape))
     vbuf = torch.full((12 * n + 8,), 7.0)
     mbuf = torch.full((9 * n + 8,), 3, dtype=torch.uint8)
-    err = host_lib.mf_derived_fields(
-        tk.values.data_ptr(), q.values.data_ptr(), u.values.data_ptr(),
-        v.values.data_ptr(), tk.mask.data_ptr(), q.mask.data_ptr(),
-        u.mask.data_ptr(), v.mask.data_ptr(), ps.values.data_ptr(),
-        ps.mask.data_ptr(), al.data_ptr(), bl.data_ptr(), xm.data_ptr(),
-        ym.data_ptr(), vbuf[3:].data_ptr(), mbuf[5:].data_ptr(), *shape,
-        0, 0, *shape[1:], 0, 0, None)
+    err, got = _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
+                     False, vbuf[3:3 + 12 * n].view(12, *shape),
+                     mbuf[5:5 + 9 * n].view(torch.bool).view(9, *shape))
     assert err == 0
-    got = DerivedFieldsStacked(vbuf[3:3 + 12 * n].reshape(12, *shape),
-                               mbuf[5:5 + 9 * n].reshape(9, *shape).bool())
     _assert_same(got, ref, "views")
     assert bool((vbuf[:3] == 7.0).all()) and bool((vbuf[-5:] == 7.0).all())
     assert bool((mbuf[:5] == 3).all()) and bool((mbuf[-3:] == 3).all())
@@ -324,15 +299,13 @@ def test_host_fused_refuses_a_plane_stride_below_the_planes(
               "negative": -n3}[short]
     args = _args(_inputs(*shape, seed=2, undefs=False), all_defined)
     stack = _MemberStack(2 if all_defined else 9, shape)
-    values, masks, _ = stack.slot()
-    err = _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
-                all_defined, values, masks, stride)
+    err, _ = _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
+                   all_defined, *stack.slot(), stride)
     assert err != 0
     assert bool((stack.values == SENTINEL_VALUE).all())
     assert bool((stack.masks == SENTINEL_MASK).all())
     dense = _host_fused(host_lib, args, all_defined)
-    values = torch.empty_like(dense.values)
-    masks = torch.empty_like(dense.masks)
-    assert _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
-                 all_defined, values, masks, n3) == 0
-    _assert_same(DerivedFieldsStacked(values, masks), dense, short)
+    err, out = _call(host_lib, args[:5], *args[5:9], (0, 0), shape[1:],
+                     all_defined, *map(torch.empty_like, dense), n3)
+    assert err == 0
+    _assert_same(out, dense, short)

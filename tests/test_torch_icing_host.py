@@ -15,7 +15,6 @@ The card itself checks the same equality (``test_torch_icing.py``'s
 ``cuda``-marked tests, ``chip_smoke.py`` phase 9).
 """
 
-import ctypes
 import math
 
 import numpy as np
@@ -23,7 +22,7 @@ import pytest
 import torch
 
 import icing_corner_cases as corners
-from cuda_host import host_library
+from cuda_host import host_library, run
 from mi_fieldcalc_tpu_torch.field import from_sentinel
 from mi_fieldcalc_tpu_torch.ops import icing_fused as F
 from mi_fieldcalc_tpu_torch.ops.icing import _mincog_decay, _number
@@ -36,13 +35,7 @@ SCAL_VS0 = (0.0, 0.0, 1.0, 4.0)
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "vessel_icing.cu", 2)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    pp = ctypes.POINTER(ctypes.c_void_p)
-    lib.mf_vessel_icing_mincog.argtypes = [pp] + [p] * 4 + [i, f, i, p, i,
-                                                            p]
-    lib.mf_vessel_icing_modstall.argtypes = [pp] + [p] * 3 + [i, f, p, i, p]
-    return lib
+    return host_library(tmp_path_factory, "vessel_icing.cu", 2)
 
 
 @pytest.fixture
@@ -74,24 +67,13 @@ def _inputs(ny, nx, seed, adversarial, plant):
 
 def _host_launch(lib, planes, flags, decay, vsca, alt):
     """One host launch of B5 (``alt``) or B6 on the kernel planes and the
-    bool flags (gate, shallow, and skip0 for B5)."""
-    names = F._MS_PLANES if alt is None else F._PLANES
-    gate = flags[0]
-    assert all(planes[k].is_contiguous() for k in names)
-    dec = torch.tensor(decay, dtype=torch.float32)
-    out = torch.empty(gate.shape, dtype=torch.float32)
-    ptrs = (ctypes.c_void_p * len(names))(
-        *[planes[k].data_ptr() for k in names])
-    if alt is None:
-        err = lib.mf_vessel_icing_modstall(
-            ptrs, gate.data_ptr(), flags[1].data_ptr(), dec.data_ptr(),
-            dec.numel(), vsca, out.data_ptr(), gate.numel(), None)
-    else:
-        err = lib.mf_vessel_icing_mincog(
-            ptrs, gate.data_ptr(), flags[1].data_ptr(), flags[2].data_ptr(),
-            dec.data_ptr(), dec.numel(), vsca, alt, out.data_ptr(),
-            gate.numel(), None)
-    assert err == 0
+    bool flags (gate, shallow, and skip0 for B5), with the arguments the
+    wrapper launches with (``icing_fused._launch_args``)."""
+    out, args = F._launch_args("host", F._MS_PLANES if alt is None
+                               else F._PLANES, planes, flags, decay, vsca,
+                               alt)
+    assert run(lib, "mf_vessel_icing_modstall" if alt is None
+               else "mf_vessel_icing_mincog", args) == 0
     return out
 
 
@@ -99,12 +81,10 @@ def _host_run(lib, fields, scal, alt):
     """One host launch of B5 (``alt``) or B6 on the wrapper's prologue."""
     vs, alpha, zmin, zmax = scal
     if alt is None:
-        gate, planes, shallow = F._modstall_prologue(*fields)
-        flags = (gate, shallow)
+        gate, planes, *flags = F._modstall_prologue(*fields)
     else:
-        gate, planes, shallow, skip0 = F._mincog_prologue(*fields, vs, alpha)
-        flags = (gate, shallow, skip0)
-    return _host_launch(lib, planes, flags,
+        gate, planes, *flags = F._mincog_prologue(*fields, vs, alpha)
+    return _host_launch(lib, planes, (gate, *flags),
                         _mincog_decay(zmin, _number(zmin, zmax)),
                         float(vs * math.cos(alpha)), alt)
 

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from cuda_host import host_library
+from cuda_host import host_library, run
 from mi_fieldcalc_tpu_torch.field import Field
 from mi_fieldcalc_tpu_torch.tools import (
     bench_copy, perf_lab_dma, perf_lab_element, probe_mincog_kernel,
@@ -43,17 +43,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "probes.cu", 5)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mf_probe_copy.argtypes = [p] * 14 + [i] * 5 + [p]
-    lib.mf_probe_add1.argtypes = [p, ctypes.POINTER(p)] + [i] * 6 + [p]
-    lib.mf_probe_window.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.mf_probe_solver.argtypes = [p] * 5 + [i, p]
-    return lib
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+    return host_library(tmp_path_factory, "probes.cu", 5)
 
 
 def _same_bits(got: torch.Tensor, ref: torch.Tensor) -> bool:
@@ -107,13 +97,11 @@ def _copy_on_host(host_lib, args, shape, all_defined, offsets=None):
         ins = [_offset(t, k) for t, k in zip(ins, offsets)]
         if len(offsets) > 12:
             outs = [_offset(t, k) for t, k in zip(outs, offsets[12:])]
-    ptrs = [_ptr(t) for t in ins]
     if all_defined:
         for i in (4, 5, 6, 7, 9):
-            ptrs[i] = None
-    assert host_lib.mf_probe_copy(
-        *ptrs, *(_ptr(t) for t in outs), nlev, ny, nx, int(all_defined), 0,
-        None) == 0
+            ins[i] = None
+    assert run(host_lib, "mf_probe_copy", (*ins, *outs, nlev, ny, nx,
+                                           int(all_defined), 0)) == 0
     ref_v, ref_m = bench_copy.copy_probe_plain(tk, q, u, v, ps, xmapr, ymapr,
                                                all_defined)
     assert _same_bits(outs[0], ref_v)
@@ -160,9 +148,8 @@ def _add1_on_host(host_lib, shape, ty, nbuf, threads, x_at=0, out_at=0):
     outs = [_offset(torch.full(shape, float("nan")), out_at)
             for _ in range(nbuf)]
     ptrs = (ctypes.c_void_p * nbuf)(*(o.data_ptr() for o in outs))
-    assert host_lib.mf_probe_add1(
-        _ptr(x), ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)), nbuf, ty,
-        threads, *shape, None) == 0
+    assert run(host_lib, "mf_probe_add1",
+               (x, ptrs, nbuf, ty, threads, *shape)) == 0
     for got, ref in zip(outs, perf_lab_dma.add1_plain(x, nbuf)):
         assert _same_bits(got, ref)
 
@@ -200,8 +187,8 @@ def test_window_host_equals_plain(host_lib, shape, ty):
     o = torch.full_like(ref_o, float("nan"))
     ow = torch.full_like(ref_ow, float("nan"))
     nlev, ny, nx = y.shape
-    assert host_lib.mf_probe_window(_ptr(x), _ptr(y), _ptr(o), _ptr(ow), ty,
-                                    nlev, ny, nx, None) == 0
+    assert run(host_lib, "mf_probe_window",
+               (x, y, o, ow, ty, nlev, ny, nx)) == 0
     assert _same_bits(o, ref_o)
     assert _same_bits(ow, ref_ow)
 
@@ -239,9 +226,8 @@ def test_solver_host_equals_plain(host_lib, shape, kind):
     work = torch.zeros(2, dtype=torch.int32)
     for c0, a, decay in inputs:
         out = torch.full_like(c0, float("nan"))
-        assert host_lib.mf_probe_solver(_ptr(c0), _ptr(a), _ptr(decay),
-                                        _ptr(out), _ptr(work), c0.numel(),
-                                        None) == 0
+        assert run(host_lib, "mf_probe_solver",
+                   (c0, a, decay, out, work, c0.numel())) == 0
         assert _same_bits(out, probe_mincog_kernel.solver_plain(c0, a,
                                                                 decay))
         assert work.tolist() == [0, 0]
@@ -249,8 +235,7 @@ def test_solver_host_equals_plain(host_lib, shape, kind):
 
 def test_entries_refuse_what_the_kernels_do_not_take(host_lib):
     x = torch.zeros((1, 4, 4))
-    ptrs = (ctypes.c_void_p * 1)(x.data_ptr())
-    pp = ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p))
+    pp = (ctypes.c_void_p * 1)(x.data_ptr())
     assert host_lib.mf_probe_copy(*([None] * 14), 1, 2, 3, 1, 0, None) != 0
     assert host_lib.mf_probe_copy(*([None] * 14), 1, 3, 3, 1, -1, None) != 0
     assert host_lib.mf_probe_copy(*([None] * 14), 1, 3, 3, 1, 232449,
@@ -259,8 +244,7 @@ def test_entries_refuse_what_the_kernels_do_not_take(host_lib):
     for ad in (False, True):
         assert host_lib.mf_probe_copy(*([None] * 14), 1, 3, 232448 // 4,
                                       int(ad), 0, None) != 0
-    assert host_lib.mf_probe_add1(_ptr(x), pp, 33, 8, 256, 1, 4, 4,
-                                  None) != 0
-    assert host_lib.mf_probe_add1(_ptr(x), pp, 1, 8, 16, 1, 4, 4, None) != 0
+    assert run(host_lib, "mf_probe_add1", (x, pp, 33, 8, 256, 1, 4, 4)) != 0
+    assert run(host_lib, "mf_probe_add1", (x, pp, 1, 8, 16, 1, 4, 4)) != 0
     assert host_lib.mf_probe_window(*([None] * 4), 33, 1, 4, 4, None) != 0
     assert host_lib.mf_probe_solver(*([None] * 5), 0, None) != 0

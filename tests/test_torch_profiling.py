@@ -20,7 +20,6 @@ import sys
 import threading
 import time
 import tracemalloc
-from collections import Counter
 from types import SimpleNamespace
 
 import pytest
@@ -308,10 +307,8 @@ def test_the_ensemble_summary_records_each_layer(nmem):
     assert children(fields) == ["b1.kernel", "ensemble.member_stack"] * nmem
     stats = [s for s in rec.spans if s.parent == reduce.id]
     assert [s.name for s in stats] == ["ensemble.stats"] * 12
-    assert Counter(n for s in stats for n in children(s)) == {
-        "ensemble.mean": 12, "ensemble.spread": 12,
-        "ensemble.probability": 2}
-    assert len(rec.spans) == 3 + 2 * nmem + 12 + 26
+    assert not any(children(s) for s in stats)
+    assert len(rec.spans) == 3 + 2 * nmem + 12
     assert rec.counters == {}           # no allocator counter off CUDA
     assert all(s.self_ms >= 0 for s in rec.spans)
 
@@ -386,7 +383,7 @@ def test_work_on_the_host_keeps_the_host_clock_once_cuda_is_up(
         ensemble.ensemble_derived_summary(*args, fused=True)
     rec = tprof.take()
     assert rec.counters == {}
-    assert len(rec.spans) == 2 + 3 + 2 * 2 + 12 + 26
+    assert len(rec.spans) == 2 + 3 + 2 * 2 + 12
     for s in rec.spans:
         assert s.ms == (s.end_ns - s.start_ns) / 1e6
     assert rec.spans[1].ms >= 2.0
@@ -473,7 +470,7 @@ def test_the_summary_on_the_card_and_then_on_the_host():
             time.sleep(0.002)
     host = tprof.take()
     assert host.counters == {}
-    assert len(host.spans) == 3 + 2 * 2 + 12 + 26 + 1
+    assert len(host.spans) == 3 + 2 * 2 + 12 + 1
     for s in host.spans:
         assert s.ms == (s.end_ns - s.start_ns) / 1e6
     assert host.spans[-1].ms >= 2.0

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from cuda_host import host_library
+from cuda_host import host_library, run
 from mi_fieldcalc_tpu_torch.constants import EWT, N_EWT
 from mi_fieldcalc_tpu_torch.field import from_sentinel
 from mi_fieldcalc_tpu_torch.ops import fused_suite as fs
@@ -72,53 +72,23 @@ MODES = {"all_modes": chip_smoke.ALL_MODES, "config2": chip_smoke.CONFIG2}
 def host_lib(tmp_path_factory):
     lib = host_library(tmp_path_factory, "level_suite.cu", 4,
                        [("ewt_probe.cpp", _PROBE)])
-    p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.mf_alevel_suite.argtypes = [p] * 8 + [ip, i, ip, p, p] + [i] * 4 + [p]
-    lib.mf_hlevel_suite.argtypes = ([p] * 10 + [ip, i, ip, p, p] + [i] * 4
-                                    + [p])
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.mf_host_ewt_table.argtypes = [p]
     lib.mf_host_ewt_count.argtypes = [p, i, p]
     lib.mf_host_ewt_inverse.argtypes = [p, p, i, p, p]
-    for fn in (lib.mf_alevel_suite, lib.mf_hlevel_suite, lib.mf_host_ewt_pad):
-        fn.restype = i
+    lib.mf_host_ewt_pad.restype = i
     return lib
 
 
 def _host_suite(lib, hybrid, t, q, rh, p, alevel, blevel, reqs,
                 all_defined) -> fs.SuiteStacked:
-    """One host launch of B4 (``hybrid``) or B3, arguments as the wrapper
-    (``fused_suite._launch``) passes them."""
-    nlev, ny, nx = t.values.shape
-    kinds = fs._gate_planes(reqs)
-    nplanes = len(kinds) if all_defined else len(reqs)
-    values = torch.empty((len(reqs), nlev, ny, nx), dtype=torch.float32)
-    masks = torch.empty((nplanes, nlev, ny, nx), dtype=torch.bool)
-    creqs = (ctypes.c_int * (2 * len(reqs)))(
-        *[v for fam, c in reqs for v in (fs._FAMILY_CODE[fam], c)])
-    gates = [-1, -1, -1]
-    for i, k in enumerate(kinds):
-        gates[fs._GATE_SLOT[k]] = i
-    cgates = (ctypes.c_int * 3)(*gates)
-
-    def vm(f):
-        if f is None:
-            return None, None
-        return f.values.data_ptr(), (None if all_defined
-                                     else f.mask.data_ptr())
-
-    (tv, tm), (qv, qm), (rv, rm), (pv, pm) = map(vm, (t, q, rh, p))
-    if hybrid:
-        err = lib.mf_hlevel_suite(
-            tv, qv, rv, tm, qm, rm, pv, pm, alevel.data_ptr(),
-            blevel.data_ptr(), creqs, len(reqs), cgates, values.data_ptr(),
-            masks.data_ptr(), nlev, ny, nx, int(all_defined), None)
-    else:
-        err = lib.mf_alevel_suite(
-            tv, qv, rv, pv, tm, qm, rm, pm, creqs, len(reqs), cgates,
-            values.data_ptr(), masks.data_ptr(), nlev, ny, nx,
-            int(all_defined), None)
-    assert err == 0
-    return fs.SuiteStacked(values, masks, fs._mask_map(reqs, all_defined))
+    """One host launch of B4 (``hybrid``) or B3 on the arguments the
+    wrapper launches with (``fused_suite._launch_args``)."""
+    out, args = fs._launch_args(hybrid, t, q, rh, p, alevel, blevel, reqs,
+                                all_defined)
+    assert run(lib, "mf_hlevel_suite" if hybrid else "mf_alevel_suite",
+               args) == 0
+    return out
 
 
 def _assert_same(got, ref, label):

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
-from cuda_host import host_library
+from cuda_host import host_library, run
 from mi_fieldcalc_tpu_torch.field import Field
 from mi_fieldcalc_tpu_torch.models import STANDARD_PLEVELS
 from mi_fieldcalc_tpu_torch.ops import vertical_fused as vf
@@ -38,41 +38,21 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "vertical_interp.cu", 2)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    lib.mf_vertical_interp.argtypes = ([pp, pp, i] + [p] * 5 + [i, p, p]
-                                       + [i] * 5 + [p, ip])
-    lib.mf_vertical_interp.restype = i
-    return lib
+    return host_library(tmp_path_factory, "vertical_interp.cu", 2)
 
 
 def _host_interp(lib, fields, ps, a, b, targets, log_p, all_defined):
-    """One host call of B2's C entry, arguments as the wrapper
-    (``vertical_fused._launch``) passes them; the launches it reports are
+    """One host call of B2's C entry on the arguments the wrapper launches
+    with (``vertical_fused._launch_args``); the launches it reports are
     one for each group of up to 31 fields."""
     nvar = len(fields)
-    nlev, ny, nx = fields[0].values.shape
-    nt = len(targets)
-    tgt = torch.tensor(targets, dtype=torch.float32)
-    values = torch.empty((nvar, nt, ny, nx), dtype=torch.float32)
-    masks = torch.empty((1 if all_defined else nvar, nt, ny, nx),
-                        dtype=torch.bool)
-    vp = (ctypes.c_void_p * nvar)(*[f.values.data_ptr() for f in fields])
-    mp = (ctypes.c_void_p * nvar)(
-        *[None if all_defined else f.mask.data_ptr() for f in fields])
+    out, args = vf._launch_args(fields, ps, a, b, targets, log_p,
+                                all_defined)
     launched = ctypes.c_int(-1)
-    err = lib.mf_vertical_interp(
-        vp, mp, nvar, ps.values.data_ptr(),
-        None if all_defined else ps.mask.data_ptr(), a.data_ptr(),
-        b.data_ptr(), tgt.data_ptr(), nt, values.data_ptr(),
-        masks.data_ptr(), nlev, ny, nx, int(log_p), int(all_defined), None,
-        ctypes.byref(launched))
-    assert err == 0
+    assert run(lib, "mf_vertical_interp",
+               (*args, ctypes.byref(launched))) == 0
     assert launched.value == -(-nvar // 31), (nvar, launched.value)
-    if all_defined:
-        return tuple(Field(values[v], masks[0]) for v in range(nvar))
-    return tuple(Field(values[v], masks[v]) for v in range(nvar))
+    return out
 
 
 def _check(lib, fields, ps, al, bl, targets, log_p, all_defined, label):
