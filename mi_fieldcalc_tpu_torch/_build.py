@@ -133,7 +133,7 @@ _S = _Stream
 _SIGNATURES = {
     "mf_derived_fields": [_P] * 16 + [_I] * 8 + [_I64, _S],
     "mf_vertical_interp": ([_PP, _PP, _I] + [_P] * 5 + [_I, _P, _P]
-                           + [_I] * 5 + [_S, _IP]),
+                           + [_I] * 5 + [_P, _S, _IP]),
     "mf_alevel_suite": [_P] * 8 + [_IP, _I, _IP, _P, _P] + [_I] * 4 + [_S],
     "mf_hlevel_suite": [_P] * 10 + [_IP, _I, _IP, _P, _P] + [_I] * 4 + [_S],
     "mf_vessel_icing_mincog": [_PP] + [_P] * 4 + [_I, _F, _I, _P, _I, _S],

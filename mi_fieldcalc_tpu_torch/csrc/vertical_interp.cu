@@ -35,19 +35,37 @@
 //   plane; targets are the outer loop, so no nvar x nt accumulators sit in
 //   registers; neighbouring threads hold neighbouring columns, so every
 //   read and write is coalesced where neighbouring columns share a bracket;
-// - each block copies a, b and the targets into shared memory and checks
-//   there, with one block vote, that a and b are finite and non-decreasing;
-// - on such levels, a column whose ps is finite and >= 0 has
-//   non-decreasing p_k = fl(a_k + fl(b_k * ps)) (b_k * ps is non-decreasing
-//   in k, rounding is monotone, and a finite a_k and b_k give no NaN), so
-//   "p_k <= t" holds on a prefix of the levels and at most one k has
-//   p_k <= t < p_{k+1}: the last prefix level, if the next one exists and
-//   lies above t.  A binary search of ceil(log2(nlev + 1)) steps finds the
-//   prefix's length, and the bracket is the same k the walk finds;
-// - every other column (ps NaN, infinite or negative), and every column
-//   of a launch whose a or b fails the vote, walks all level pairs and
-//   keeps the last bracket, as the rule says.  Both paths evaluate p_k with
-//   the same two operations, so they agree wherever both apply;
+// - each block copies a, b and the targets into shared memory, and notes
+//   the first and the last level pair across which a or b is not finite
+//   and non-decreasing;
+// - each column first checks its own rounded pressures p_k = fl(a_k +
+//   fl(b_k * ps)), evaluated with the same two operations as everywhere
+//   else (the build's -fmad=false keeps each rounded on its own), for
+//   p_k <= p_{k+1} at every k.  The compare fails on NaN, so a column
+//   that passes holds no NaN (nlev > 1; a single level brackets nothing
+//   on either route).  Where ps is finite and >= 0, a pair whose a and b
+//   are finite and non-decreasing cannot fall (b_k * ps <= b_{k+1} * ps,
+//   rounding is monotone, and finite a, b and ps give no NaN), so such a
+//   column checks only the pairs from the first to the last of the
+//   others: none on sorted levels, ERA5's lower 57 of 136, where its A
+//   falls; any other ps checks every pair;
+// - on a column that passes, "p_k <= t" holds on a prefix of the levels,
+//   ties and infinities included (p_j <= p_k <= t for j < k), so at most
+//   one k has p_k <= t < p_{k+1}: the last prefix level, if the next one
+//   exists (and then lies above t).  A binary search of
+//   ceil(log2(nlev + 1)) steps finds the prefix's length, and the bracket
+//   is the same k the walk finds.  The check needs no sorted a or b and
+//   no sign of ps: a hybrid table, whose a rises from the top and returns
+//   to 0 at the surface, passes wherever b * ps outgrows a's fall;
+// - every other column (ps NaN, a ps too small for the table, a table
+//   whose p decreases somewhere) walks all level pairs and keeps the last
+//   bracket, as the rule says.  Both routes evaluate p_k as the check
+//   does, so they agree wherever both apply.  Each route has its own copy
+//   of the target loop (interp_column), which ran faster on every case
+//   measured than one loop choosing the route at each target;
+// - with a non-null counter, each block adds the columns it sent to the
+//   search route to it, in one atomic (the wrapper passes one only while
+//   a profiler session is on);
 // - ln t of each target is taken once per block, into shared memory;
 // - every phase is a block-stride loop, so the source also runs on the
 //   host with one thread per block (tests/test_torch_vertical_host.py);
@@ -56,18 +74,24 @@
 //   many fields, each launch writing its own slice of the outputs, so a
 //   call takes any number of fields and a call of up to kGroupVars runs
 //   the one launch (and the same kernel) it always did.
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --interp-times,
-// the launch alone, 3 pairs against the walk): config 4, random ps,
-// masked 0.3172-0.3225 ms against 0.4159-0.4861; on a smooth ps of the
-// same range 0.2468-0.2525 against 0.4068-0.4266 (bytes moved once: 0.1326
-// ms at 3.35 TB/s).  What is left is mostly the bracket gathers: on the
-// random ps the 32 columns of a warp bracket a near-surface target at up
-// to ~8 levels, so their loads touch several times the sectors they use.
-// Loading a group of 4 or 8 targets' brackets before their stores, and
-// streaming (evict-first) stores, were measured and were slower.  At 40
-// fields (two launches, 31 + 9) the launches take 2.99 ms masked against
-// the bytes bound's 1.32 ms (chip_smoke.py phase 16): each launch repeats
-// the bracket search, which fields of one group share.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --interp-ab,
+// the launch alone, medians of 10 alternating rounds against the block
+// vote that searched only sorted a and b): config 4, random ps, masked
+// 0.2646 ms against 0.2778, all-defined 0.2101 against 0.2173; on a smooth
+// ps of the same range 0.1980 against 0.2068 and 0.1399 against 0.1555
+// (bytes moved once: 0.1326 ms at 3.35 TB/s).  ERA5's 4 fields x 137
+// levels x 721x1440 -> 37, all-defined, where that vote sent every column
+// down the walk: 0.882 ms a launch against 1.869 (the bytes bound 0.563
+// ms).  What is left is mostly the bracket gathers: on a random ps the 32
+// columns of a warp bracket a near-surface target at up to ~8 levels, so
+// their loads touch several times the sectors they use.  Loading a group
+// of 4 or 8 targets' brackets before their stores, and streaming
+// (evict-first) stores, were measured and were slower; so were one target
+// loop choosing the route at each target (up to 13% on config 4's smooth
+// all-defined case) and a cap of 40 registers.  At 40 fields (two
+// launches, 31 + 9) the launches take 2.68 ms masked against the bytes
+// bound's 1.32 ms (chip_smoke.py phase 16): each launch repeats the
+// bracket search, which fields of one group share.
 
 #include "common.cuh"
 
@@ -88,6 +112,7 @@ struct InterpParams {
   const float* __restrict__ targets;
   float* __restrict__ out_values;
   uint8_t* __restrict__ out_masks;
+  unsigned long long* searched;    // columns searched, or null
   int nvar, nt, nlev;
   int64_t plane;
 };
@@ -126,6 +151,50 @@ __device__ __forceinline__ int bracket_search(const float* s_a,
   return s_a[cnt] + s_b[cnt] * ps > xt ? cnt - 1 : -1;
 }
 
+// Column i's targets, each bracketed by the search (kSearch) or by the
+// walk: one loop for each route, so neither carries the other's branch.
+template <bool kAllDefined, bool kLogP, bool kSearch>
+__device__ __forceinline__ void interp_column(
+    const InterpParams& P, const float* s_a, const float* s_b,
+    const float* s_t, const float* s_xt, int top, int64_t i, float ps,
+    bool psm) {
+  const int64_t n_out = P.plane * P.nt;     // one output field
+  for (int t = 0; t < P.nt; ++t) {
+    const float xt = s_t[t];
+    const int kb = kSearch ? bracket_search(s_a, s_b, P.nlev, top, ps, xt)
+                           : bracket_walk(s_a, s_b, P.nlev, ps, xt);
+    const int64_t o = static_cast<int64_t>(t) * P.plane + i;
+    if (kb < 0) {
+      for (int v = 0; v < P.nvar; ++v) P.out_values[v * n_out + o] = 0.0f;
+      if (kAllDefined) {
+        P.out_masks[o] = 0;
+      } else {
+        for (int v = 0; v < P.nvar; ++v) P.out_masks[v * n_out + o] = 0;
+      }
+      continue;
+    }
+    const float x0 = level_x(s_a[kb] + s_b[kb] * ps, kLogP);
+    const float x1 = level_x(s_a[kb + 1] + s_b[kb + 1] * ps, kLogP);
+    const float denom = x1 - x0;
+    const bool ok = denom != 0.0f;
+    const float dinv = 1.0f / (ok ? denom : 1.0f);
+    const float w = (s_xt[t] - x0) * dinv;
+    const int64_t i0 = static_cast<int64_t>(kb) * P.plane + i;
+    const int64_t i1 = i0 + P.plane;
+    for (int v = 0; v < P.nvar; ++v) {
+      const float f0 = __ldg(P.f[v] + i0);
+      const float f1 = __ldg(P.f[v] + i1);
+      P.out_values[v * n_out + o] = f0 + (f1 - f0) * w;
+      if (!kAllDefined) {
+        P.out_masks[v * n_out + o] =
+            (__ldg(P.fm[v] + i0) && __ldg(P.fm[v] + i1) && ok && psm) ? 1
+                                                                      : 0;
+      }
+    }
+    if (kAllDefined) P.out_masks[o] = ok ? 1 : 0;
+  }
+}
+
 template <bool kAllDefined, bool kLogP>
 __global__ void __launch_bounds__(kBlock)
 interp_kernel(const InterpParams P) {
@@ -134,20 +203,37 @@ interp_kernel(const InterpParams P) {
   float* s_b = s_a + P.nlev;
   float* s_t = s_b + P.nlev;
   float* s_xt = s_t + P.nt;
-  bool sorted = true;           // a and b finite and non-decreasing
+  // [s_lo, s_hi): the level pairs (k, k + 1) a column with a finite ps >= 0
+  // checks, from the first to the last across which a or b is not finite
+  // and non-decreasing (empty: s_lo = nlev, s_hi = 0)
+  __shared__ int s_lo, s_hi;
+  __shared__ unsigned s_searched;     // the block's searched columns
+  if (threadIdx.x == 0) {
+    s_lo = P.nlev;
+    s_hi = 0;
+    s_searched = 0;
+  }
+  __syncthreads();
   for (int k = threadIdx.x; k < P.nlev; k += blockDim.x) {
     const float a = P.alevel[k];
     const float b = P.blevel[k];
     s_a[k] = a;
     s_b[k] = b;
-    sorted = sorted && isfinite(a) && isfinite(b) &&
-             (k == 0 || (P.alevel[k - 1] <= a && P.blevel[k - 1] <= b));
+    if (k > 0) {
+      const float a0 = P.alevel[k - 1];
+      const float b0 = P.blevel[k - 1];
+      if (!(isfinite(a0) && isfinite(a) && isfinite(b0) && isfinite(b) &&
+            a0 <= a && b0 <= b)) {
+        atomicMin(&s_lo, k - 1);
+        atomicMax(&s_hi, k);
+      }
+    }
   }
   for (int t = threadIdx.x; t < P.nt; t += blockDim.x) {
     s_t[t] = P.targets[t];
     s_xt[t] = kLogP ? log_f32(P.targets[t]) : P.targets[t];
   }
-  const bool search = __syncthreads_and(sorted);
+  __syncthreads();
   int top = 1;
   while (2 * top <= P.nlev) top *= 2;
 
@@ -158,44 +244,33 @@ interp_kernel(const InterpParams P) {
        i < end; i += blockDim.x) {
     const float ps = __ldg(P.ps + i);
     const bool psm = kAllDefined ? true : __ldg(P.psm + i) != 0;
-    // finite and >= 0 (NaN fails both compares)
-    const bool monotone = search && ps >= 0.0f && ps <= 0x1.fffffep+127f;
-    const int64_t n_out = P.plane * P.nt;     // one output field
-
-    for (int t = 0; t < P.nt; ++t) {
-      const float xt = s_t[t];
-      const int kb =
-          monotone ? bracket_search(s_a, s_b, P.nlev, top, ps, xt)
-                   : bracket_walk(s_a, s_b, P.nlev, ps, xt);
-      const int64_t o = static_cast<int64_t>(t) * P.plane + i;
-      if (kb < 0) {
-        for (int v = 0; v < P.nvar; ++v) P.out_values[v * n_out + o] = 0.0f;
-        if (kAllDefined) {
-          P.out_masks[o] = 0;
-        } else {
-          for (int v = 0; v < P.nvar; ++v) P.out_masks[v * n_out + o] = 0;
-        }
-        continue;
+    // p_k does not decrease down this column (NaN fails the compare); a
+    // finite ps >= 0 (NaN fails both compares) checks only [s_lo, s_hi)
+    const bool regular = ps >= 0.0f && ps <= 0x1.fffffep+127f;
+    const int k0 = regular ? s_lo : 0;
+    const int k1 = regular ? s_hi : P.nlev - 1;
+    bool monotone = true;
+    if (k0 < k1) {
+      float p_k = s_a[k0] + s_b[k0] * ps;
+      for (int k = k0; k < k1; ++k) {
+        const float p_k1 = s_a[k + 1] + s_b[k + 1] * ps;
+        monotone &= p_k <= p_k1;
+        p_k = p_k1;
       }
-      const float x0 = level_x(s_a[kb] + s_b[kb] * ps, kLogP);
-      const float x1 = level_x(s_a[kb + 1] + s_b[kb + 1] * ps, kLogP);
-      const float denom = x1 - x0;
-      const bool ok = denom != 0.0f;
-      const float dinv = 1.0f / (ok ? denom : 1.0f);
-      const float w = (s_xt[t] - x0) * dinv;
-      const int64_t i0 = static_cast<int64_t>(kb) * P.plane + i;
-      const int64_t i1 = i0 + P.plane;
-      for (int v = 0; v < P.nvar; ++v) {
-        const float f0 = __ldg(P.f[v] + i0);
-        const float f1 = __ldg(P.f[v] + i1);
-        P.out_values[v * n_out + o] = f0 + (f1 - f0) * w;
-        if (!kAllDefined) {
-          P.out_masks[v * n_out + o] =
-              (__ldg(P.fm[v] + i0) && __ldg(P.fm[v] + i1) && ok && psm) ? 1
-                                                                        : 0;
-        }
-      }
-      if (kAllDefined) P.out_masks[o] = ok ? 1 : 0;
+    }
+    if (P.searched != nullptr && monotone) atomicAdd(&s_searched, 1u);
+    if (monotone) {
+      interp_column<kAllDefined, kLogP, true>(P, s_a, s_b, s_t, s_xt, top, i,
+                                              ps, psm);
+    } else {
+      interp_column<kAllDefined, kLogP, false>(P, s_a, s_b, s_t, s_xt, top,
+                                               i, ps, psm);
+    }
+  }
+  if (P.searched != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0 && s_searched != 0) {
+      atomicAdd(P.searched, static_cast<unsigned long long>(s_searched));
     }
   }
 }
@@ -220,14 +295,16 @@ extern "C" {
 // fmasks are host arrays of nvar device pointers (fmasks and psm may be
 // null when all_defined != 0: they are not read).  out_values is [nvar,
 // nt, ny, nx]; out_masks is [1, nt, ny, nx] when all_defined != 0, else
-// [nvar, nt, ny, nx].
+// [nvar, nt, ny, nx].  searched, where not null, is a device counter to
+// which every launch adds the columns it sent to the binary search.
 int mf_vertical_interp(const float* const* fvals,
                        const uint8_t* const* fmasks, int nvar,
                        const float* ps, const uint8_t* psm,
                        const float* alevel, const float* blevel,
                        const float* targets, int nt, float* out_values,
                        uint8_t* out_masks, int nlev, int ny, int nx,
-                       int log_p, int all_defined, void* stream,
+                       int log_p, int all_defined,
+                       unsigned long long* searched, void* stream,
                        int* launched) {
   *launched = 0;
   if (nvar < 1 || nt < 1 || nt > kMaxTargets || nlev < 1 ||
@@ -253,6 +330,7 @@ int mf_vertical_interp(const float* const* fvals,
     P.alevel = alevel;
     P.blevel = blevel;
     P.targets = targets;
+    P.searched = searched;
     P.out_values = out_values + v0 * n_out;
     P.nt = nt;
     P.nlev = nlev;

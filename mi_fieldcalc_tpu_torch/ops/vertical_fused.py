@@ -35,7 +35,7 @@ import torch
 from .. import _build
 from .._libm import log_f32
 from ..field import Field
-from ..utils.profiling import span
+from ..utils.profiling import count, device_count, span
 from ._harness import check_tensor, require
 
 __all__ = ["hlevel_to_plevel_fused", "hlevel_to_plevel_plain"]
@@ -138,7 +138,10 @@ def hlevel_to_plevel_fused(fields: Tuple[Field, ...], ps: Field,
     Returns a tuple of ``[len(targets), ny, nx]`` Fields.  On CUDA
     tensors this launches the kernel once for each group of up to 31
     fields and counts each launch in ``hlevel_to_plevel_fused.launches``;
-    on CPU tensors it runs :func:`hlevel_to_plevel_plain`.
+    inside a profiler session it also counts the columns of its launches
+    (``b2.columns``) and, on the card, those the kernel's binary search
+    took (``b2.searched_columns``).  On CPU tensors it runs
+    :func:`hlevel_to_plevel_plain`.
     """
     del interpret, ty, unroll
     fields = tuple(fields)
@@ -171,10 +174,11 @@ hlevel_to_plevel_fused.launches = 0
 
 
 def _launch_args(fields, ps, alevel, blevel, targets, log_p: bool,
-                 all_defined: bool) -> tuple:
+                 all_defined: bool, searched=None) -> tuple:
     """One call's checks, outputs and arguments, on any device:
     ``(outputs, args)``, ``args`` those of ``mf_vertical_interp`` up to its
-    stream, tensors for pointers."""
+    stream, tensors for pointers; ``searched`` the int64 counter the
+    launches add their searched columns to, or None."""
     name = "hlevel_to_plevel_fused"
     dev = ps.values.device
     nvar = len(fields)
@@ -209,16 +213,18 @@ def _launch_args(fields, ps, alevel, blevel, targets, log_p: bool,
                 for v in range(nvar))
     return out, (vp, mp, nvar, ps.values, None if all_defined else ps.mask,
                  alevel, blevel, tgt, nt, values, masks, nlev, ny, nx,
-                 int(log_p), int(all_defined))
+                 int(log_p), int(all_defined), searched)
 
 
 def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
             all_defined: bool) -> Tuple[Field, ...]:
     """One call, as :func:`_launch_args` sets it up: one launch for each
-    group of up to 31 fields, each counted."""
-    out, args = _launch_args(fields, ps, alevel, blevel, targets, log_p,
-                             all_defined)
+    group of up to 31 fields, each counted, and inside a profiler session
+    their columns and, on the card, their searched columns."""
     dev = ps.values.device
+    out, args = _launch_args(fields, ps, alevel, blevel, targets, log_p,
+                             all_defined,
+                             device_count("b2.searched_columns", dev))
     launched = ctypes.c_int(0)
     try:
         with span("b2.kernel", dev):
@@ -226,4 +232,5 @@ def _launch(fields, ps, alevel, blevel, targets, log_p: bool,
                         *args, ctypes.byref(launched))
     finally:        # the groups launched before a refused one count too
         hlevel_to_plevel_fused.launches += launched.value
+        count("b2.columns", ps.values.numel() * launched.value)
     return out

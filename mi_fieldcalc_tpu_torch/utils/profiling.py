@@ -33,7 +33,8 @@ counters of the newest session, :func:`take` returns them and clears::
 
 A span opened with ``count_allocs`` on a card adds the caching
 allocator's ``cudaMalloc`` calls made inside it to the counter
-``allocator.device_allocs``.
+``allocator.device_allocs``.  A kernel counts on the card itself into
+:func:`device_count`'s slot, which the session reads with its records.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["trace", "device_hbm_gbps", "device_f32_flops", "device_events",
-           "device_busy_ms", "event_times_ms", "span", "count", "recorded",
-           "take", "SpanRecord", "Recording"]
+           "device_busy_ms", "event_times_ms", "span", "count",
+           "device_count", "recorded", "take", "SpanRecord", "Recording"]
 
 #: NVIDIA's published device-memory rates (bytes/s) by the name
 #: ``torch.cuda.get_device_properties`` gives: H100 SXM and H200 SXM
@@ -177,20 +178,22 @@ class Recording(NamedTuple):
 
 
 class _Recorder:
-    """The newest session's open and finished spans and its counters.  A
-    span or count that finds the profiler on, after a span found it off or
-    the records were read with it off, begins a new session."""
+    """The newest session's open and finished spans, its counters and
+    the device slots its kernels count into.  A span or count that finds
+    the profiler on, after a span found it off or the records were read
+    with it off, begins a new session."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.local = threading.local()     # each thread's open spans
         self.ids = itertools.count(1)
-        self.spans, self.counters = [], {}
+        self.spans, self.counters, self.slots = [], {}, {}
+        self.pool = {}      # every slot made, by (name, device), kept
         self.sealed = True
 
     def _begin(self) -> None:
         if self.sealed:
-            self.spans, self.counters = [], {}
+            self.spans, self.counters, self.slots = [], {}, {}
             self.sealed = False
 
     def open(self, s) -> None:
@@ -203,6 +206,23 @@ class _Recorder:
             self._begin()
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def slot(self, name: str, device: torch.device) -> torch.Tensor:
+        """The session's slot of ``name`` on ``device``: made once a
+        process, zeroed on the current stream once a session."""
+        key = (name, device)
+        with self.lock:
+            self._begin()
+            t = self.slots.get(key)
+            if t is None:
+                t = self.pool.get(key)
+                if t is None:
+                    t = self.pool[key] = torch.zeros((), dtype=torch.int64,
+                                                     device=device)
+                else:
+                    t.zero_()
+                self.slots[key] = t
+            return t
+
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
         if stack is None:
@@ -214,8 +234,13 @@ class _Recorder:
             self.sealed = True
         with self.lock:
             spans, counters = self.spans, dict(self.counters)
+            slots = dict(self.slots)
             if take:
-                self.spans, self.counters = [], {}
+                self.spans, self.counters, self.slots = [], {}, {}
+        for (name, device), t in slots.items():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            counters[name] = counters.get(name, 0) + int(t.item())
         done = [s for s in spans if s.end_ns is not None]
         ms = {s.id: s.device_ms() for s in done}
         children = {}
@@ -397,6 +422,21 @@ def count(name: str, n=1) -> None:
     ``torch.profiler`` session is on."""
     if _autograd_profiler._is_profiler_enabled:
         _RECORDER.add(name, n)
+
+
+def device_count(name: str, device) -> Optional[torch.Tensor]:
+    """A slot on ``device`` for a kernel to add the count ``name`` to, while
+    a ``torch.profiler`` session is on and outside a CUDA graph's capture:
+    a 0-d int64 tensor, zeroed once a session and made once a process,
+    whose value joins the session's counter ``name`` when its records are
+    read (:func:`recorded`), so the count stays on the card until then.
+    None otherwise, for a launch to pass as a null pointer."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return None
+    return _RECORDER.slot(name, device)
 
 
 def recorded() -> Recording:

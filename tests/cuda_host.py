@@ -3,8 +3,8 @@
 A ``csrc/*.cu`` file (with ``csrc/common.cuh``) is compiled by g++ as plain
 C++ through a stand-in ``cuda_runtime.h``: the CUDA qualifiers are empty,
 ``__shared__`` is ``static``, ``__syncthreads()`` does nothing,
-``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``
-and ``atomicOr`` are a plain add and or, ``cudaMemsetAsync`` a ``memset``,
+``__syncthreads_and(p)`` is the one thread's own vote ``p``, ``atomicAdd``,
+``atomicMin``, ``atomicMax`` and ``atomicOr`` are a plain add, min, max and or, ``cudaMemsetAsync`` a ``memset``,
 and ``__threadfence()`` does nothing, a warp is that one
 thread at lane 0 (``__ballot_sync(m, p)`` is ``p`` as bit 0,
 ``__any_sync(m, p)`` is ``p``, ``__shfl_sync(m, v, src)`` is ``v``,
@@ -63,6 +63,16 @@ static inline int __syncthreads_and(int p) { return p != 0; }
 template <class T> static inline T atomicAdd(T* p, T v) {
   const T old = *p;
   *p = old + v;
+  return old;
+}
+template <class T> static inline T atomicMin(T* p, T v) {
+  const T old = *p;
+  if (v < old) *p = v;
+  return old;
+}
+template <class T> static inline T atomicMax(T* p, T v) {
+  const T old = *p;
+  if (v > old) *p = v;
   return old;
 }
 template <class T> static inline T atomicOr(T* p, T v) {

@@ -131,9 +131,10 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_the_card_takes_the_kernels_bit_for_bit(cuda_device):
-    """137 x 64 x 256 -> 37 on the card: the interpolation kernel, whose
-    block vote fails on this A and so walks every level pair, equals its
-    plain version; the whole step equals the reference on the card."""
+    """137 x 64 x 256 -> 37 on the card: the interpolation kernel, which
+    finds p rising down every column of this law and so searches each,
+    equals its plain version, and a profiled call counts every column
+    searched; the whole step equals the reference on the card."""
     config = dict(CONFIG, ny=64, nx=256)
     case, args = _case(2 ** 31 + 3, config, cuda_device)
     fields = tuple(args[:4])
@@ -150,4 +151,11 @@ def test_the_card_takes_the_kernels_bit_for_bit(cuda_device):
         assert torch.equal(g.mask, r.mask)
         assert torch.equal(g.values.view(torch.int32),
                            r.values.view(torch.int32))
+    with profile(activities=[ProfilerActivity.CPU]):
+        vertical_fused.hlevel_to_plevel_fused(
+            fields, args[4], case.alevel, case.blevel, case.plevels,
+            all_defined=True)
+    counters = tprof.take().counters
+    assert counters["b2.columns"] == 64 * 256
+    assert counters["b2.searched_columns"] == 64 * 256
     _same_bits(_port(case, args), _reference(case))

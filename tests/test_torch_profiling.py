@@ -178,6 +178,59 @@ def test_a_span_off_allocates_nothing_and_calls_no_clock_or_card(
     assert tprof.recorded().spans == []
 
 
+def test_a_device_count_off_is_none_and_allocates_nothing(monkeypatch):
+    """With no session on, a kernel's counter slot is None (a launch passes
+    a null pointer), made without a tensor, a clock or a CUDA call."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("called with no profiler session on")
+
+    monkeypatch.setattr(torch, "zeros", forbidden)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        forbidden)
+    monkeypatch.setattr(tprof, "_clock", forbidden)
+    tprof.take()
+    assert tprof.device_count("off", "cpu") is None
+    tracemalloc.start()
+    try:
+        tprof.device_count("off", "cpu")
+        before = tracemalloc.get_traced_memory()[0]
+        for _ in itertools.repeat(None, 10000):
+            tprof.device_count("off", "cpu")
+        after = tracemalloc.get_traced_memory()[0]
+    finally:
+        tracemalloc.stop()
+    assert after - before == 0
+    assert tprof.recorded() == tprof.Recording([], {})
+
+
+def test_a_device_count_is_read_with_its_session():
+    """Inside a session a kernel's counter is one slot a name and device,
+    the same tensor on every call, zeroed once a session and made once a
+    process; what the kernel added joins the session's counters when they
+    are read, beside the host's counts, and reading twice adds nothing."""
+    tprof.take()
+    with _cpu_session():
+        slot = tprof.device_count("kernel.n", "cpu")
+        assert slot.shape == () and slot.dtype == torch.int64
+        assert int(slot) == 0
+        slot += 5
+        assert tprof.device_count("kernel.n", torch.device("cpu")) is slot
+        tprof.device_count("kernel.n", "cpu").add_(2)
+        tprof.count("host.n", 3)
+    assert tprof.recorded().counters == {"kernel.n": 7, "host.n": 3}
+    assert tprof.recorded().counters == {"kernel.n": 7, "host.n": 3}
+    with _cpu_session():
+        again = tprof.device_count("kernel.n", "cpu")
+        assert again is slot and int(again) == 0
+        again += 4
+    assert tprof.take().counters == {"kernel.n": 4}
+    assert tprof.recorded().counters == {}
+    with _cpu_session():
+        with tprof.span("none counted"):
+            pass
+    assert tprof.take().counters == {}
+
+
 def test_nesting_sets_parent_root_and_self_time():
     with _cpu_session():
         with tprof.span("outer"):
