@@ -34,6 +34,23 @@ construction is the cell's set-up (inputs drawn on the device), with:
 The window is a closed loop: unit ``i`` is enqueued only once unit
 ``i - in_flight`` has finished on the device.  Its time is all the time
 from its start until every unit enqueued has finished.
+
+A cell whose ``chips`` is N > 1 runs as N processes, one a card
+(:mod:`benchmark.ranks`): each rank builds its own ``Entry`` on
+``cuda:<LOCAL_RANK>`` under torchrun's environment, and the entry joins
+the process group itself (the port's ``parallel.distributed.initialize``).
+Every rank warms up, then waits at a host barrier; ``setup_s`` ends there,
+on rank 0.  In the window rank 0 alone reads the clock and tells every
+other rank on the harness's host channel whether unit ``i`` runs, so every
+rank runs the same units; each keeps its own ``in_flight`` markers, and
+the window ends when every rank has finished its units on its card and
+passed a second barrier (its seconds are rank 0's).  Each rank then checks
+its own outputs; rank 0 merges the reports (the same ``attempted`` on
+every rank, the largest peak, each compared number's largest value, the
+limits equal) and alone makes the line, its metrics read from its own
+spans and trace.  The one rule for an entry of such a cell: every rank
+runs the same units and the same collectives in the same order, the
+warm-up and the check included.
 """
 
 from __future__ import annotations
@@ -128,8 +145,30 @@ def _done_marker(device: torch.device):
     return ev
 
 
-def window(entry, seconds: float, in_flight: int, device) -> tuple:
-    """Units of work back to back for ``seconds``: ``(units, seconds)``."""
+def memory_peak(device: torch.device) -> int:
+    """The most the run held: the caching allocator's peak on a card; on
+    the CPU the process's peak resident bytes (``VmHWM``, else
+    ``ru_maxrss``, which may keep the launching process's peak)."""
+    if device.type == "cuda":
+        return int(torch.cuda.max_memory_allocated(device))
+    try:
+        status = Path("/proc/self/status").read_text()
+    except OSError:
+        status = ""
+    kb = [line.split()[1] for line in status.splitlines()
+          if line.startswith("VmHWM:")]
+    if not kb:
+        import resource
+        kb = [resource.getrusage(resource.RUSAGE_SELF).ru_maxrss]
+    return int(kb[0]) * 1024
+
+
+def window(entry, seconds: float, in_flight: int, device,
+           group=None) -> tuple:
+    """Units of work back to back for ``seconds``: ``(units, seconds)``.
+    With ``group`` (a rank of an N-card run) rank 0's clock decides for
+    every rank whether each unit runs, and the window closes at a host
+    barrier once every rank's card has finished."""
     pending = deque()
     units = 0
     t0 = time.perf_counter()
@@ -138,21 +177,28 @@ def window(entry, seconds: float, in_flight: int, device) -> tuple:
             ev = pending.popleft()
             if ev is not None:
                 ev.synchronize()
-        if time.perf_counter() - t0 >= seconds and units > 0:
+        stop = time.perf_counter() - t0 >= seconds and units > 0
+        if group is not None:
+            stop = group.decide(units, stop)
+        if stop:
             break
         entry.step(units)
         pending.append(_done_marker(device))
         units += 1
     synchronize(device)
+    if group is not None:
+        group.barrier("window")
     return units, time.perf_counter() - t0
 
 
 def run_cell(spec: dict, cell: str, seed: int, seconds: float, trace: bool,
              device="cuda", t_start: float = None,
-             overrides: dict = None) -> dict:
+             overrides: dict = None, group=None) -> dict:
     """One run of ``cell``; returns the result's line as a dict.
     ``overrides`` replaces keys of the configuration (the CPU tests run a
-    cell at a small size)."""
+    cell at a small size).  ``group`` is this process's rank of an N-card
+    run (:class:`benchmark.ranks.Group`): rank 0 returns the line merged
+    over the ranks, every other rank ``None``."""
     t_start = time.perf_counter() if t_start is None else t_start
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -174,8 +220,12 @@ def run_cell(spec: dict, cell: str, seed: int, seconds: float, trace: bool,
         synchronize(dev)
         marks.append((f"warm-up {i + 1}", time.perf_counter()))
     entry.reset()
+    if group is not None:
+        group.barrier("ready")
+        marks.append(("every rank ready", time.perf_counter()))
     setup_s = time.perf_counter() - t_start
-    print("set-up split, s: process start to card ready "
+    print(("" if group is None else f"rank {group.rank}: ")
+          + "set-up split, s: process start to card ready "
           f"{marks[0][1] - t_start:.3f}; " + "; ".join(
               f"{name} {t - marks[j][1]:.3f}"
               for j, (name, t) in enumerate(marks[1:])), file=sys.stderr)
@@ -188,18 +238,27 @@ def run_cell(spec: dict, cell: str, seed: int, seconds: float, trace: bool,
         with patched(spans, entry.spans):
             prof = profiler(dev)
             prof.start()
-            units, window_s = window(entry, secs, in_flight, dev)
+            units, window_s = window(entry, secs, in_flight, dev, group)
             prof.stop()
         trace_out = read_trace(prof)
         del prof
     else:
-        units, window_s = window(entry, seconds, in_flight, dev)
+        units, window_s = window(entry, seconds, in_flight, dev, group)
 
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
+    peak = memory_peak(dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     check = entry.check()
+    busy_s = trace_out["busy_s"] if trace else None
+    count = 1
+    if group is not None:
+        merged = group.merge({"units": units, "peak": peak, "check": check,
+                              "busy_s": busy_s})
+        if merged is None:
+            return None
+        peak, check, busy_s = (merged["peak"], merged["check"],
+                               merged["busy_s"])
+        count = group.world
     failed = sum(1 for v, lim in check.values() if not v <= lim)
 
     # what the metric readers see
@@ -215,11 +274,11 @@ def run_cell(spec: dict, cell: str, seed: int, seconds: float, trace: bool,
 
     device_info = {"platform": "gpu" if dev.type == "cuda" else "cpu",
                    "kind": kind,
-                   "count": 1, "memory_peak_bytes": int(peak)}
+                   "count": count, "memory_peak_bytes": int(peak)}
     out = {"correct": failed == 0, "attempted": units, "failed": failed,
            "metrics": metrics, "device": device_info}
     if trace:
-        device_info["busy_s"] = trace_out["busy_s"]
+        device_info["busy_s"] = busy_s
         device_info["window_s"] = window_s
         out["breakdown"] = {"device_ops": trace_out["device_ops"],
                             "idle_gaps": trace_out["idle_gaps"]}

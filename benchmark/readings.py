@@ -12,7 +12,10 @@ cell's own size, in one process:
     python3 benchmark/readings.py --workload arome_l65.steps \\
         --seeds 11 12 13 --control-seeds 21 22 23 --seconds 1
 
-One JSON line a seed; the benchmark's own runs do not run this.
+One JSON line a seed; the benchmark's own runs do not run this.  A cell
+on N > 1 chips runs as N ranks, one a card, as ``run.py`` runs it
+(:func:`benchmark.ranks.launch`): each rank checks its own outputs, and a
+line holds each number's largest value over the ranks.
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def readings(cell: str, seeds, control_seeds, seconds: float,
-             device="cuda", overrides: dict = None):
-    """Yield ``{"seed", "kind", "check"}`` for every seed."""
+             device="cuda", overrides: dict = None, group=None):
+    """Yield ``{"seed", "kind", "check"}`` for every seed.  With ``group``
+    (a rank of an N-card run, :class:`benchmark.ranks.Group`) rank 0
+    yields the lines merged over the ranks, the other ranks nothing."""
     import torch
     from benchmark import harness
     from benchmark.spans import replaced
@@ -49,7 +54,8 @@ def readings(cell: str, seeds, control_seeds, seconds: float,
                     entry.step(i)
                 entry.reset()
                 units, _ = harness.window(entry, seconds,
-                                          int(traffic["in_flight"]), dev)
+                                          int(traffic["in_flight"]), dev,
+                                          group)
             else:
                 table = {target: (lambda _, fn=fn: fn)
                          for target, fn in entry.control().items()}
@@ -59,13 +65,18 @@ def readings(cell: str, seeds, control_seeds, seconds: float,
                         entry.step(i)
             harness.synchronize(dev)
             check = entry.check()
-            yield {"cell": cell, "seed": seed, "kind": kind, "units": units,
-                   "check": {k: v for k, (v, _) in check.items()},
-                   "limits": {k: lim for k, (_, lim) in check.items()},
-                   "seconds": time.perf_counter() - t0}
+            if group is not None:
+                merged = group.merge({"units": units, "check": check})
+                check = None if merged is None else merged["check"]
             del entry
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+            if check is not None:
+                yield {"cell": cell, "seed": seed, "kind": kind,
+                       "units": units,
+                       "check": {k: v for k, (v, _) in check.items()},
+                       "limits": {k: lim for k, (_, lim) in check.items()},
+                       "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None) -> int:
@@ -77,13 +88,27 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
-    if not torch.cuda.is_available():
-        print("readings.py: no CUDA device", file=sys.stderr)
+
+    from benchmark import harness
+    chips = int(harness.resolve(harness.benchmark_spec(),
+                                args.workload)["cell"]["chips"])
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"readings.py: {args.workload} needs {chips} CUDA device(s)",
+              file=sys.stderr)
         return 2
-    for line in readings(args.workload, args.seeds, args.control_seeds,
-                         args.seconds):
+    if chips == 1:
+        for line in readings(args.workload, args.seeds, args.control_seeds,
+                             args.seconds):
+            print(json.dumps(line), flush=True)
+        return 0
+    from benchmark import ranks
+    code, lines, _ = ranks.launch(
+        {"mode": "readings", "cell": args.workload, "seeds": args.seeds,
+         "control_seeds": args.control_seeds, "seconds": args.seconds},
+        chips, "cuda")
+    for line in lines or ():
         print(json.dumps(line), flush=True)
-    return 0
+    return code
 
 
 if __name__ == "__main__":

@@ -7,8 +7,12 @@ Run from the root of a checkout.  The last line of standard output is one
 JSON object (``correct``, ``attempted``, ``failed``, ``metrics``,
 ``device``, with ``--trace 1`` also ``breakdown``, and last ``check``: each
 number compared with its limit); the same numbers are the last lines of
-standard error.  Exits non-zero and prints no result without a CUDA card,
-or if the run loaded ``jax``, ``jaxlib``, ``flax`` or the JAX package.
+standard error.  Exits non-zero and prints no result without a CUDA card
+for every chip the cell asks for, or if the run loaded ``jax``, ``jaxlib``,
+``flax`` or the JAX package.  A cell on one chip runs in this process; a
+cell on N > 1 runs as N processes, one a card, started and reported as one
+run by :func:`benchmark.ranks.launch` (exit 1 and no result where a rank
+fails or stalls).
 """
 
 from __future__ import annotations
@@ -46,9 +50,20 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    out = harness.run_cell(spec, args.workload, args.seed, args.seconds,
-                           bool(args.trace), "cuda", T_START)
-    bad = harness.forbidden_modules()
+    chips = int(cell["chips"])
+    if chips == 1:
+        out = harness.run_cell(spec, args.workload, args.seed, args.seconds,
+                               bool(args.trace), "cuda", T_START)
+        bad = harness.forbidden_modules()
+    else:
+        from benchmark import ranks
+        job = {"mode": "run", "cell": args.workload, "seed": args.seed,
+               "seconds": args.seconds, "trace": args.trace,
+               "t_start": time.monotonic() - (time.perf_counter() - T_START)}
+        code, out, bad = ranks.launch(job, chips, "cuda")
+        if code:
+            return code
+        bad = sorted(set(bad) | set(harness.forbidden_modules()))
     if bad:
         print(f"run.py: the run loaded {', '.join(bad)}", file=sys.stderr)
         return 3
