@@ -14,6 +14,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..field import Field, ValuesDefined, f32
+from ..utils.profiling import span
 from ._harness import bool_vector, out_field, require
 from .stencil import _SHARD_CTX, shard_all_reduce
 
@@ -115,6 +116,18 @@ def extreme_value(compute: int, members) -> Field:
     return Field(idx, torch.ones_like(cur_def))
 
 
+def shard_member_flags(flags: torch.Tensor) -> torch.Tensor:
+    """The whole-field member flags ``flags`` (one int a member), in place
+    their maximum over the shards of the installed ``ops.stencil.ShardCtx``
+    group, inside the span ``ensemble.flags_reduce``; as they are where no
+    group is installed."""
+    ctx = _SHARD_CTX.get()
+    if ctx is None or ctx.group is None:
+        return flags
+    with span("ensemble.flags_reduce"):
+        return shard_all_reduce(flags, "max")
+
+
 def probability(compute: int, members, limits: Sequence[float],
                 member_defined: Optional[Sequence[ValuesDefined]] = None,
                 member_defined_mask=None) -> Field:
@@ -155,8 +168,7 @@ def probability(compute: int, members, limits: Sequence[float],
     else:
         member_sel = s.mask.reshape(s.mask.shape[0], -1).any(dim=1)
         if _SHARD_CTX.get() is not None:
-            member_sel = shard_all_reduce(member_sel.to(torch.int32),
-                                          "max") != 0
+            member_sel = shard_member_flags(member_sel.to(torch.int32)) != 0
     nfields = member_sel.sum()
     passes = passes & _member_axis(member_sel, s)
     count = passes.sum(dim=0).to(torch.float32)

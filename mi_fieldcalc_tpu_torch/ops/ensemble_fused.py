@@ -26,8 +26,8 @@ from .. import _build
 from ..field import Field, f32
 from ..utils.profiling import span
 from ._harness import check_tensor, out_field
-from .ensemble import mean_value, probability, stddev_value
-from .stencil import shard_all_reduce
+from .ensemble import mean_value, probability, shard_member_flags, \
+    stddev_value
 
 __all__ = ["EnsembleStats", "ensemble_stats_fused", "ensemble_stats_plain"]
 
@@ -122,7 +122,7 @@ def _launch(field: Field, limit, compute) -> EnsembleStats:
         _build.call(name, "mf_ensemble_stats", dev, *stats)
         if prob is not None:
             # the member flags ``seen``; a no-op off a shard
-            shard_all_reduce(prob[2], "max")
+            shard_member_flags(prob[2])
             ensemble_stats_fused.prob_launches += 1
             _build.call(name, "mf_ensemble_prob", dev, *prob)
     return out

@@ -32,6 +32,7 @@ from ..models.pipeline import RADIUS, DerivedFieldsStacked, \
 from ..ops._harness import require
 from ..ops.fused import derived_fields_fused
 from ..ops.stencil import ShardCtx, shard_context
+from ..utils.profiling import span
 from .halo import _start, global_extent, packed_exchange_cols, \
     packed_exchange_rows
 from .mesh import ProcessGrid
@@ -72,9 +73,11 @@ def _unflat(flat, n: int, all_defined: bool):
     return fields, flat[-2], flat[-1]
 
 
+@span("halo.exchange")
 def _exchange(flat, grid: ProcessGrid) -> list:
     """``flat`` padded with a RADIUS halo ring on both axes; a tensor
-    that appears more than once rides the wire once."""
+    that appears more than once rides the wire once.  The span
+    ``halo.exchange`` covers the packing, both legs and the padding."""
     uniq = list({id(a): a for a in flat}.values())
     rows = packed_exchange_rows(uniq, RADIUS, grid)
     padded = dict(zip(map(id, uniq),
@@ -275,6 +278,7 @@ def derived_fields_isobaric_sharded(grid: ProcessGrid, tk: Field, q: Field,
     return st.as_fields()
 
 
+@span("ensemble.summary", count_allocs=True)
 def ensemble_summary_sharded(grid: ProcessGrid, tk: Field, q: Field,
                              u: Field, v: Field, ps: Field, alevel, blevel,
                              xmapr, ymapr, fcoriolis,
@@ -292,7 +296,13 @@ def ensemble_summary_sharded(grid: ProcessGrid, tk: Field, q: Field,
     probabilities' whole-field member flags are the maximum over the
     shards (``ops.ensemble.probability`` under the shard's context), so
     every shard divides by the same count.  The grid must have
-    ``lev == 1``."""
+    ``lev == 1``.
+
+    Its spans carry the unsharded route's names: ``ensemble.summary``
+    (the call), ``ensemble.member_fields`` (the member loop) and, once a
+    member, ``ensemble.member_stack`` (the crop of B1's padded planes and
+    their copy into the member's slot); ``halo.exchange`` and
+    ``halo.wire`` (:mod:`.halo`) cover the exchange."""
     if grid.shape[0] != 1:
         raise ValueError("ensemble sharding needs lev == 1 (the member "
                          "axis stays local; spatial axes shard)")
@@ -308,11 +318,14 @@ def ensemble_summary_sharded(grid: ProcessGrid, tk: Field, q: Field,
     shape = tuple(tk.values.shape[1:])
 
     def fill(member, values, masks):
-        st = _crop(_b1(member, al, bl, pxm, pym, all_defined, r0 - RADIUS,
-                       c0 - RADIUS, nyg, nxg, RADIUS), *shape[-2:])
-        values.copy_(st.values)
-        masks.copy_(st.masks)
+        st = _b1(member, al, bl, pxm, pym, all_defined, r0 - RADIUS,
+                 c0 - RADIUS, nyg, nxg, RADIUS)
+        with span("ensemble.member_stack"):
+            st = _crop(st, *shape[-2:])
+            values.copy_(st.values)
+            masks.copy_(st.masks)
 
-    out = _member_stack(pf, shape, 2 if all_defined else 9, fill)
+    with span("ensemble.member_fields"):
+        out = _member_stack(pf, shape, 2 if all_defined else 9, fill)
     with shard_context(ShardCtx(r0, c0, nyg, nxg, grid.group)):
         return ensemble_summary(out, wind_limit)

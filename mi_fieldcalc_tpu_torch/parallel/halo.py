@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.stencil import ShardCtx, shard_context
+from ..utils.profiling import count, span
 from .distributed import tree_map
 from .mesh import ProcessGrid
 
@@ -51,16 +52,20 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 class _Pending:
     """A started packed exchange: :meth:`wait` gives ``(from_prev,
-    from_next)``, each strip shaped and typed as the strip it answers."""
+    from_next)``, each strip shaped and typed as the strip it answers.
+    ``wire`` is the open ``halo.wire`` span, closed once every message
+    has been waited for."""
 
-    def __init__(self, ops, works, recvs, lo, hi):
+    def __init__(self, ops, works, recvs, lo, hi, wire):
         # the ops keep the send buffers alive until the exchange is done
         self._ops, self._works = ops, works
         self._recvs, self._lo, self._hi = recvs, lo, hi
+        self._wire = wire
 
     def wait(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         for w in self._works:
             w.wait()
+        self._wire.__exit__(None, None, None)
         out = []
         for side, like in ((0, self._hi), (1, self._lo)):
             strips = [None] * len(like)
@@ -82,7 +87,10 @@ class _Pending:
 def _start(lo_strips: Sequence[torch.Tensor],
            hi_strips: Sequence[torch.Tensor], grid: ProcessGrid,
            axis: str) -> _Pending:
-    """Post :func:`packed_sendrecv`'s messages and return at once."""
+    """Post :func:`packed_sendrecv`'s messages and return at once.  The
+    bytes posted to send add to the counter ``halo.bytes``; the span
+    ``halo.wire`` runs from the post to :meth:`_Pending.wait` (on a card,
+    until the current stream has waited for every message)."""
     import torch.distributed as dist
 
     lo = [_wire(a.contiguous()) for a in lo_strips]
@@ -91,7 +99,7 @@ def _start(lo_strips: Sequence[torch.Tensor],
     groups = {}
     for i, a in enumerate(lo):
         groups.setdefault(a.dtype, []).append(i)
-    ops, recvs = [], []
+    ops, recvs, sent = [], [], 0
     for dtype, idxs in groups.items():
         dev = lo[idxs[0]].device
         bufs = [None, None]
@@ -99,14 +107,19 @@ def _start(lo_strips: Sequence[torch.Tensor],
             if peer is None:
                 continue
             out = torch.cat([send[i].reshape(-1) for i in idxs])
+            sent += out.numel() * out.element_size()
             bufs[side] = torch.empty(sum(hi[i].numel() if side == 0 else
                                          lo[i].numel() for i in idxs),
                                      dtype=dtype, device=dev)
             ops.append(dist.P2POp(dist.isend, out, peer))
             ops.append(dist.P2POp(dist.irecv, bufs[side], peer))
         recvs.append((idxs, bufs))
+    count("halo.bytes", sent)
+    wire = span("halo.wire", lo[0].device if lo else None)
+    wire.__enter__()
     works = dist.batch_isend_irecv(ops) if ops else []
-    return _Pending(ops, works, recvs, list(lo_strips), list(hi_strips))
+    return _Pending(ops, works, recvs, list(lo_strips), list(hi_strips),
+                    wire)
 
 
 def packed_sendrecv(lo_strips: Sequence[torch.Tensor],

@@ -518,7 +518,113 @@ def _fused_cases() -> Dict[str, Case]:
     return cases
 
 
-CASES = {"ops": _ops_cases, "fused": _fused_cases}
+# ------------------------------------------- the MEPS-30 cell's cases
+
+#: the seed of the MEPS-30 cases' inputs
+MEPS_SEED = 2 ** 31 + 28
+#: the MEPS-30 block reference's levels a block (the cell's 8 would hold
+#: the 3 levels of the CPU size in one)
+MEPS_LEVEL_BLOCK = 2
+
+
+def meps_config() -> tuple:
+    """The cell ``meps30_l65.ens30``'s configuration at its ``cpu_test``
+    size (30 members, 3 levels, 21x19, ragged blocks over (1, 2, 2)) and
+    its traffic, as ``benchmark/`` holds them."""
+    import json
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1] / "benchmark"
+    config = json.loads((root / "configs" / "meps30_l65.json").read_text())
+    traffic = json.loads((root / "traffic" / "ens30.json").read_text())
+    return dict(config, **config["cpu_test"]), traffic
+
+
+def meps_case(block):
+    """The cell's inputs of one lead time on ``block`` (``((r0, r1), (c0,
+    c1))``), drawn by ``benchmark.inputs_sharded`` as the cell draws them."""
+    from benchmark.inputs_sharded import BlockCase
+    config, traffic = meps_config()
+    return BlockCase(MEPS_SEED, config, traffic, (1, config["members"]),
+                     block, torch.device("cpu"))
+
+
+def meps_block(grid) -> tuple:
+    config, _ = meps_config()
+    return grid.block("gy", config["ny"]), grid.block("gx", config["nx"])
+
+
+def _meps_summary(grid, case):
+    config, traffic = meps_config()
+    args = [Field(v[0], m[0]) for v, m in
+            (case.fields[n] for n in ("tk", "q", "u", "v", "ps"))]
+    return ensemble_summary_sharded(
+        grid, *args, case.alevel, case.blevel, case.xmapr, case.ymapr,
+        case.fcoriolis, wind_limit=float(traffic["wind_limit"]),
+        global_shape=(config["ny"], config["nx"]))
+
+
+def _meps_summary_case():
+    def sharded(grid):
+        return distributed.gather(
+            _meps_summary(grid, meps_case(meps_block(grid))), grid)
+
+    return Case((1, 2, 2), sharded)
+
+
+def _max_over_ranks(flags):
+    import torch.distributed as dist
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+    return flags
+
+
+def _meps_blocks_case():
+    """Every rank's answer of the block reference, with its block."""
+    from benchmark.reference import ensemble_block
+
+    def sharded(grid):
+        config, traffic = meps_config()
+        case = meps_case(meps_block(grid))
+        ref = ensemble_block.summary(
+            lambda levels: case.window(0, levels), config["members"],
+            config["levels"], case.alevel, case.blevel, case.win_xmapr,
+            case.win_ymapr, case.crop, float(traffic["wind_limit"]),
+            MEPS_LEVEL_BLOCK, reduce_flags=_max_over_ranks)
+        return per_rank((case.block, ref))
+
+    return Case((1, 2, 2), sharded)
+
+
+def _meps_spans_case():
+    """One sharded summary under a profiler session, then one without:
+    each rank's spans (name, its parent's name), counters and block, and
+    what the second summary left recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mi_fieldcalc_tpu_torch.utils import profiling
+
+    def sharded(grid):
+        case = meps_case(meps_block(grid))
+        with profile(activities=[ProfilerActivity.CPU]):
+            _meps_summary(grid, case)
+        rec = profiling.take()
+        names = {s.id: s.name for s in rec.spans}
+        _meps_summary(grid, case)
+        after = profiling.recorded()
+        return per_rank({"spans": [(s.name, names.get(s.parent))
+                                   for s in rec.spans],
+                         "counters": rec.counters, "block": case.block,
+                         "after": (len(after.spans), after.counters)})
+
+    return Case((1, 2, 2), sharded)
+
+
+def _meps_cases() -> Dict[str, Case]:
+    return {"summary": _meps_summary_case(), "blocks": _meps_blocks_case(),
+            "spans": _meps_spans_case()}
+
+
+CASES = {"ops": _ops_cases, "fused": _fused_cases, "meps": _meps_cases}
 
 
 def run_ranks(group: str, out_dir, world: int = 4, timeout: float = 120.0,
